@@ -1,0 +1,144 @@
+"""SE(3) / quaternion algebra on batched torch tensors.
+
+Conventions are those of the JAX package's ``core/se3.py``:
+
+* quaternions are ``[w, x, y, z]`` (Hamilton, scalar first);
+* a pose is ``(t, q)`` with ``x_world = R(q) @ x_local + t``;
+* tangent updates are right-multiplicative: ``t <- t + dt``,
+  ``q <- q * exp(dtheta)``.
+
+Every function broadcasts over leading batch dims and stays on the device
+of its inputs.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def quat_identity(device=None, dtype=torch.float32) -> Tensor:
+    # built by kernels on the device: a host tensor copy would synchronise
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[0] = 1.0
+    return q
+
+
+def cross(a: Tensor, b: Tensor) -> Tensor:
+    """Cross product over the last axis (jnp.cross's component formula)."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def quat_multiply(q1: Tensor, q2: Tensor) -> Tensor:
+    """Hamilton product q1 * q2, batched over leading dims."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_conjugate(q: Tensor) -> Tensor:
+    return torch.cat([q[..., 0:1], -q[..., 1:4]], dim=-1)
+
+
+def quat_normalize(q: Tensor, eps: float = 1e-12) -> Tensor:
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.clamp(n, min=eps)
+
+
+def quat_rotate(q: Tensor, v: Tensor) -> Tensor:
+    """Rotate vector(s) v by quaternion(s) q (15-multiply form)."""
+    w = q[..., 0:1]
+    u, v = torch.broadcast_tensors(q[..., 1:4], v)
+    uv = cross(u, v)
+    return v + 2.0 * (w * uv + cross(u, uv))
+
+
+def quat_to_matrix(q: Tensor) -> Tensor:
+    """Quaternion -> rotation matrix: (..., 4) -> (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+        2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+        2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_exp(theta: Tensor) -> Tensor:
+    """so(3) tangent -> unit quaternion exp([0, theta/2]), with the Taylor
+    fallback of the reference's ``Utility::deltaQ`` for small angles."""
+    sq = torch.sum(theta * theta, dim=-1, keepdim=True)
+    small = sq < 1e-12
+    safe_sq = torch.where(small, torch.ones_like(sq), sq)
+    angle = torch.sqrt(safe_sq)
+    half = 0.5 * angle
+    sinc_half = torch.where(small, 0.5 - sq / 48.0 + sq * sq / 3840.0,
+                            torch.sin(half) / angle)
+    w = torch.where(small, 1.0 - sq / 8.0 + sq * sq / 384.0, torch.cos(half))
+    return torch.cat([w, sinc_half * theta], dim=-1)
+
+
+def skew(v: Tensor) -> Tensor:
+    """Cross-product matrix: (..., 3) -> (..., 3, 3)."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
+class Pose(NamedTuple):
+    """SE(3) pose: x_world = R(q) @ x_local + t."""
+
+    t: Tensor  # (..., 3)
+    q: Tensor  # (..., 4) [w, x, y, z]
+
+    @staticmethod
+    def identity(device=None, dtype=torch.float32) -> "Pose":
+        return Pose(torch.zeros(3, dtype=dtype, device=device),
+                    quat_identity(device, dtype))
+
+    def compose(self, other: "Pose") -> "Pose":
+        """self * other (apply other first, then self), normalised."""
+        return Pose(t=quat_rotate(self.q, other.t) + self.t,
+                    q=quat_normalize(quat_multiply(self.q, other.q)))
+
+    def inverse(self) -> "Pose":
+        qinv = quat_conjugate(self.q)
+        return Pose(t=-quat_rotate(qinv, self.t), q=qinv)
+
+    def apply(self, points: Tensor) -> Tensor:
+        """Transform points (N, 3) or (3,) by this pose."""
+        if points.dim() >= 2 and self.q.dim() == 1:
+            R = quat_to_matrix(self.q)
+            return points @ R.T + self.t
+        return quat_rotate(self.q, points) + self.t
+
+    def retract(self, delta: Tensor) -> "Pose":
+        """Right-plus with a 6-vector [dt(3), dtheta(3)]."""
+        return Pose(t=self.t + delta[..., 0:3],
+                    q=quat_normalize(quat_multiply(self.q,
+                                                   quat_exp(delta[..., 3:6]))))
+
+    def to_vec7(self) -> Tensor:
+        """[t(3), qx, qy, qz, qw] (Rigid3::ToVector7 layout)."""
+        return torch.cat([self.t, self.q[..., 1:4], self.q[..., 0:1]], dim=-1)
+
+
+def select_pose(cond: Tensor, a: Pose, b: Pose) -> Pose:
+    """Elementwise ``a if cond else b`` for a 0-d boolean tensor, on the
+    device (no host synchronisation)."""
+    return Pose(torch.where(cond, a.t, b.t), torch.where(cond, a.q, b.q))
