@@ -1,5 +1,6 @@
-"""msf_loam_tpu_torch: the lidar-only MSF-LOAM frame in PyTorch, with its
-three hand-written Hopper kernels (``csrc/``).
+"""msf_loam_tpu_torch: the MSF-LOAM lidar-only and tightly-coupled
+LiDAR-IMU frames in PyTorch, with four hand-written Hopper kernels
+(``csrc/``).
 
 Precision: importing the package turns TF32 off for CUDA matmuls and
 cuDNN (``torch.backends.cuda.matmul.allow_tf32 = False``,

@@ -1,4 +1,4 @@
-"""Configuration of the PyTorch port: the lidar-only frame's three sections.
+"""Configuration of the PyTorch port: features, odometry, mapping and IMU.
 
 Field names, defaults and validation follow the JAX package's config so one
 set of values describes both implementations. The tri-state kernel switches
@@ -11,6 +11,7 @@ dataclasses are frozen and hashable so they can key caches.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +99,43 @@ class MappingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ImuConfig:
+    """IMU noise, preintegration, estimator and tight coupling."""
+
+    acc_n: float = 0.017
+    acc_w: float = 0.007
+    gyr_n: float = 0.0033
+    gyr_w: float = 0.0012
+    update_rate: float = 400.0
+    preint_mode: str = "assoc"         # "assoc" (log-depth scans) or "scan"
+    gravity: Tuple[float, float, float] = (0.0, 0.0, 9.81)
+    warmup_msgs: int = 100             # IMU samples before the IMU is used
+    init_frames: int = 50              # mapped frames of the gravity init
+    init_reject_frac: float = 0.15     # worst residual blocks dropped
+    max_lidar_imu_offset: float = 0.01
+    sqrt_info_scale: float = 0.001
+    max_imu_samples: int = 64          # static preintegration window length
+    imu_factor_weight: float = 10.0    # IMU factor weight in the tight GN
+    tight_coupling: bool = False       # IMU factor in the GN, velocity free
+    grav_refine_period: int = 10       # 0 = gravity frozen after init
+    bias_period: int = 10              # frames between bias solves (0 = off)
+    bias_window: int = 10              # pairs per bias solve
+    bias_prior_acc_sigma: float = 0.1
+    bias_prior_gyr_sigma: float = 0.05
+    bias_vel_prior_sigma: float = 0.5
+    bias_max_acc: float = 0.5
+    bias_max_gyr: float = 0.05
+    bias_ema: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
 class MsfLoamConfig:
-    """Top-level config of the lidar-only port."""
+    """Top-level config of the port."""
 
     features: FeatureConfig = dataclasses.field(default_factory=FeatureConfig)
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
     mapping: MappingConfig = dataclasses.field(default_factory=MappingConfig)
+    imu: ImuConfig = dataclasses.field(default_factory=ImuConfig)
 
     def __post_init__(self):
         self.validate()
@@ -142,8 +174,11 @@ class MsfLoamConfig:
                              "prefix of the less-sharp set)")
         oc = self.odometry
         if oc.motion_deskew or oc.deskew or oc.plane_corr != "fit":
-            raise ValueError("the port runs the lidar-only frame without "
-                             "deskew and with plane_corr='fit' only")
+            raise ValueError("the port runs without odometry motion_deskew "
+                             "or deskew and with plane_corr='fit' only")
+        if self.imu.preint_mode not in ("assoc", "scan"):
+            raise ValueError(f"imu.preint_mode={self.imu.preint_mode!r} must "
+                             f"be 'assoc' or 'scan'")
         if not mc.reuse_candidates:
             raise ValueError("the port runs the cached-candidate scan-to-map "
                              "path only (mapping.reuse_candidates=True)")

@@ -92,12 +92,49 @@ def quat_exp(theta: Tensor) -> Tensor:
     return torch.cat([w, sinc_half * theta], dim=-1)
 
 
+def quat_slerp(q0: Tensor, q1: Tensor, s: Tensor) -> Tensor:
+    """Spherical interpolation q0 (s=0) -> q1 (s=1) along the shortest
+    arc, falling back to lerp for nearly parallel quaternions; ``s`` is
+    (...,) or (..., 1)."""
+    if s.dim() == q0.dim() - 1:
+        s = s[..., None]
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(dot.abs(), -1.0, 1.0)
+    theta = torch.arccos(dot)
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-6
+    den = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(near, 1.0 - s, torch.sin((1.0 - s) * theta) / den)
+    w1 = torch.where(near, s, torch.sin(s * theta) / den)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
 def skew(v: Tensor) -> Tensor:
     """Cross-product matrix: (..., 3) -> (..., 3, 3)."""
     x, y, z = v.unbind(-1)
     zero = torch.zeros_like(x)
     m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
     return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def _quat_lr(q: Tensor, sign: float) -> Tensor:
+    w, v = q[..., 0], q[..., 1:4]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    top = torch.cat([w[..., None, None], -v[..., None, :]], dim=-1)
+    bottom = torch.cat([v[..., :, None],
+                        w[..., None, None] * eye + sign * skew(v)], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_left(q: Tensor) -> Tensor:
+    """Left-multiplication matrix: quat_multiply(q, p) == quat_left(q) @ p."""
+    return _quat_lr(q, 1.0)
+
+
+def quat_right(q: Tensor) -> Tensor:
+    """Right-multiplication matrix: quat_multiply(p, q) == quat_right(q) @ p."""
+    return _quat_lr(q, -1.0)
 
 
 class Pose(NamedTuple):

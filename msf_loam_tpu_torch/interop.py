@@ -1,7 +1,8 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 The JAX package's state — voxel hash maps, poses, point batches, scan
-features and ring images — is this system's "weights". These functions
+features, ring images and the IMU estimator (preintegrations, states, the
+sample buffer) — is this system's "weights". These functions
 build the port's tensors from any object exposing the JAX containers'
 field names with array-like values (for example a JAX NamedTuple after
 ``jax.tree.map(np.asarray, ...)``), and turn the port's containers back
@@ -18,10 +19,16 @@ import torch
 
 from msf_loam_tpu_torch.core.pointcloud import PointBatch, RingImage, ScanFeatures
 from msf_loam_tpu_torch.core.se3 import Pose
+from msf_loam_tpu_torch.imu.buffer import ImuBuffer
+from msf_loam_tpu_torch.imu.imu_factor import ImuState
+from msf_loam_tpu_torch.imu.preintegration import Preintegration
 from msf_loam_tpu_torch.slam.voxel_map import VoxelHashMap
 
 
 def _t(a, dtype, device) -> torch.Tensor:
+    """A copy of ``a`` (array-like, or a port tensor on any device)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=dtype, copy=True)
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
@@ -59,6 +66,60 @@ def map_from_numpy(m: Any, device="cuda") -> VoxelHashMap:
                         n_obs=_t(m.n_obs, torch.float32, device),
                         cell_size=float(np.asarray(m.cell_size)),
                         leaf=float(np.asarray(m.leaf)))
+
+
+def preintegration_from_numpy(pre: Any, device="cuda") -> Preintegration:
+    return Preintegration(*(
+        _t(getattr(pre, f), torch.int32 if f == "n_samples" else torch.float32,
+           device) for f in Preintegration._fields))
+
+
+def imu_state_from_numpy(s: Any, device="cuda") -> ImuState:
+    return ImuState(pose_from_numpy(s.pose, device),
+                    *(_t(getattr(s, f), torch.float32, device)
+                      for f in ("v", "ba", "bg")))
+
+
+def imu_buffer_from_numpy(buf: Any) -> ImuBuffer:
+    """A copy of a sample buffer exposing ``times`` and the ``_acc`` /
+    ``_gyr`` arrays of the JAX package's ImuBuffer."""
+    out = ImuBuffer()
+    n = len(buf.times)
+    for t, a, g in zip(np.asarray(buf.times), np.asarray(buf._acc)[:n],
+                       np.asarray(buf._gyr)[:n]):
+        out.add(float(t), a, g)
+    return out
+
+
+def load_pipeline_state(pipe: Any, src: Any) -> None:
+    """Set a port ``SlamPipeline``'s whole state from a pipeline object
+    with the JAX ``SlamPipeline``'s attributes (or from another port
+    pipeline, on any device): maps, poses, previous scan,
+    frame count and the IMU estimator (velocity, gravity, biases,
+    initialisation flag, the mapped states with their preintegrations, and
+    the IMU sample buffer)."""
+    dev = pipe.device
+    pipe.corner_map = map_from_numpy(src.corner_map, dev)
+    pipe.surf_map = map_from_numpy(src.surf_map, dev)
+    for name in ("pose_odom", "pose_curr2last", "pose_odom2map", "pose_map"):
+        setattr(pipe, name, pose_from_numpy(getattr(src, name), dev))
+    pipe.prev_scan = None if src.prev_scan is None else \
+        scan_features_from_numpy(src.prev_scan, dev)
+    pipe.frame_idx = int(src.frame_idx)
+    for name in ("velocity", "gravity", "bias_acc", "bias_gyr"):
+        setattr(pipe, name, _t(getattr(src, name), torch.float32, dev))
+    pipe.is_initialized = bool(src.is_initialized)
+    states = []
+    for st in src._states:
+        d = dict(time=float(st["time"]))
+        for f in ("p", "q", "v", "delta_p", "delta_v"):
+            d[f] = None if st.get(f) is None else \
+                _t(st[f], torch.float32, dev)
+        if st.get("pre") is not None:
+            d["pre"] = preintegration_from_numpy(st["pre"], dev)
+        states.append(d)
+    pipe._states = states
+    pipe.imu_buffer = imu_buffer_from_numpy(src.imu_buffer)
 
 
 def to_numpy(x: Any) -> Dict[str, Any]:

@@ -1,10 +1,11 @@
 """Batched on-manifold damped Gauss-Newton (port of the JAX package's
 ``ops/gauss_newton.py``).
 
-Huber IRLS block weights, dense normal equations (plain float32 products:
-TF32 is off, see ``msf_loam_tpu_torch/__init__.py``), a 6x6 Cholesky solve
-that maps a failed factorisation to a zero step without a host
-synchronisation, and the SE(3) retraction.
+Huber IRLS block weights, dense normal equations over a 6-dim pose or a
+9-dim [pose, velocity] state (plain float32 products: TF32 is off, see
+``msf_loam_tpu_torch/__init__.py``), a small Cholesky solve that maps a
+failed factorisation to a zero step without a host synchronisation, and
+the SE(3) retraction.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def accumulate_normal_eqs(blocks_list: Sequence[ResidualBlocks],
 
 class GNState(NamedTuple):
     pose: Pose
+    velocity: Tensor     # (3,): the 9-dim state's velocity; else unchanged
     cost: Tensor
     n_inliers: Tensor
 
@@ -61,21 +63,26 @@ def _solve_psd(H: Tensor, g: Tensor) -> Tensor:
     return torch.where(ok, x, torch.zeros_like(x))
 
 
-def gauss_newton(build_blocks: Callable[[Pose], Tuple[Sequence[ResidualBlocks],
-                                                      Sequence[Tensor]]],
-                 pose0: Pose, n_iters: int, damping: float = 1e-4,
+def gauss_newton(build_blocks: Callable[[Pose, Tensor],
+                                        Tuple[Sequence[ResidualBlocks],
+                                              Sequence[Tensor]]],
+                 pose0: Pose, velocity0: Tensor, n_iters: int,
+                 state_dim: int = 6, damping: float = 1e-4,
                  step_clip: float = 1.0) -> GNState:
-    """Fixed-iteration damped Gauss-Newton on a pose (state dim 6).
+    """Fixed-iteration damped Gauss-Newton on a pose (state_dim 6) or on
+    [pose, velocity] (state_dim 9, tangent [dt, dtheta, dv]).
 
-    ``build_blocks(pose)`` returns (blocks_list, weights_list)."""
-    pose = pose0
+    ``build_blocks(pose, velocity)`` returns (blocks_list, weights_list)."""
+    pose, vel = pose0, velocity0
     cost = n_in = None
     for _ in range(n_iters):
-        blocks, weights = build_blocks(pose)
-        H, g, cost, n_in = accumulate_normal_eqs(blocks, weights, 6)
+        blocks, weights = build_blocks(pose, vel)
+        H, g, cost, n_in = accumulate_normal_eqs(blocks, weights, state_dim)
         H = H + damping * torch.diag(torch.clamp(torch.diagonal(H), min=1.0))
         dx = -_solve_psd(H, g)
         dx = torch.clamp(dx, -step_clip, step_clip)
         dx = torch.where(n_in >= 3.0, dx, torch.zeros_like(dx))
-        pose = pose.retract(dx)
-    return GNState(pose=pose, cost=cost, n_inliers=n_in)
+        pose = pose.retract(dx[:6])
+        if state_dim > 6:
+            vel = vel + dx[6:9]
+    return GNState(pose=pose, velocity=vel, cost=cost, n_inliers=n_in)

@@ -1,6 +1,8 @@
 """Point-to-line / point-to-plane residuals with analytic Jacobians over
 all correspondences at once (port of the JAX package's
-``ops/icp_residuals.py``, rigid variants).
+``ops/icp_residuals.py``): the rigid variants over [dt, dtheta] (zero
+padded to a wider state on request) and the IMU-deskew variants over the
+9-dim [dt, dtheta, dv] state.
 
 Tangent convention [dt, dtheta] with q <- q * exp(dtheta), so
 d(R p)/dtheta = -R skew(p).
@@ -12,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from msf_loam_tpu_torch.core.se3 import Pose, quat_to_matrix, skew
+from msf_loam_tpu_torch.core.se3 import Pose, quat_rotate, quat_to_matrix, skew
 
 Tensor = torch.Tensor
 
@@ -25,8 +27,15 @@ class ResidualBlocks(NamedTuple):
     valid: Tensor
 
 
+def _pad_state(J: Tensor, state_dim: int) -> Tensor:
+    if state_dim > J.shape[-1]:
+        J = torch.nn.functional.pad(J, (0, state_dim - J.shape[-1]))
+    return J
+
+
 def edge_residuals(pose: Pose, points: Tensor, line_c: Tensor,
-                   line_n: Tensor, valid: Tensor) -> ResidualBlocks:
+                   line_n: Tensor, valid: Tensor,
+                   state_dim: int = 6) -> ResidualBlocks:
     """Point-to-line r = N x (R p + t - C); dr/dt = skew(N),
     dr/dtheta = -skew(N) R skew(p)."""
     R = quat_to_matrix(pose.q)
@@ -34,15 +43,71 @@ def edge_residuals(pose: Pose, points: Tensor, line_c: Tensor,
     Nx = skew(line_n)
     r = torch.einsum("nij,nj->ni", Nx, p_w - line_c)
     J_th = -torch.einsum("nij,jk,nkl->nil", Nx, R, skew(points))
-    return ResidualBlocks(r, torch.cat([Nx, J_th], dim=-1), valid)
+    return ResidualBlocks(r, _pad_state(torch.cat([Nx, J_th], dim=-1),
+                                        state_dim), valid)
 
 
 def plane_residuals(pose: Pose, points: Tensor, plane_c: Tensor,
-                    plane_n: Tensor, valid: Tensor) -> ResidualBlocks:
+                    plane_n: Tensor, valid: Tensor,
+                    state_dim: int = 6) -> ResidualBlocks:
     """Point-to-plane r = N . (R p + t - C)."""
     R = quat_to_matrix(pose.q)
     p_w = points @ R.T + pose.t
     r = (plane_n * (p_w - plane_c)).sum(dim=-1)[:, None]
     J_th = -torch.einsum("ni,ij,njk->nk", plane_n, R, skew(points))[:, None, :]
-    return ResidualBlocks(r, torch.cat([plane_n[:, None, :], J_th], dim=-1),
-                          valid)
+    J = torch.cat([plane_n[:, None, :], J_th], dim=-1)
+    return ResidualBlocks(r, _pad_state(J, state_dim), valid)
+
+
+class DeskewTerms(NamedTuple):
+    """Per-point IMU deskew inputs: delta_p / delta_q interpolated from the
+    scan window's preintegration at each point's rel-time, dt, gravity."""
+
+    delta_p: Tensor  # (N, 3)
+    delta_q: Tensor  # (N, 4) wxyz
+    dt: Tensor       # (N,)
+    gravity: Tensor  # (3,)
+
+
+def _deskewed(pose: Pose, velocity: Tensor, points: Tensor,
+              dk: DeskewTerms):
+    """(R, p_local, dt, p_world) of the deskewed points."""
+    R = quat_to_matrix(pose.q)
+    p_local = quat_rotate(dk.delta_q, points) + dk.delta_p
+    dt = dk.dt[:, None]
+    p_w = p_local @ R.T + velocity[None, :] * dt \
+        - 0.5 * dk.gravity[None, :] * dt * dt + pose.t
+    return R, p_local, dt, p_w
+
+
+def deskewed_world(pose: Pose, velocity: Tensor, points: Tensor,
+                   dk: DeskewTerms) -> Tensor:
+    """World position of every point at its capture time:
+    R (dq p + dp) + v dt - 0.5 g dt^2 + t."""
+    return _deskewed(pose, velocity, points, dk)[3]
+
+
+def edge_residuals_deskew(pose: Pose, velocity: Tensor, points: Tensor,
+                          line_c: Tensor, line_n: Tensor, valid: Tensor,
+                          dk: DeskewTerms) -> ResidualBlocks:
+    """Deskew-aware point-to-line over [dt, dtheta, dv]:
+    r = N x (R (dq p + dp) + v dt - 0.5 g dt^2 + t - C)."""
+    R, p_local, dt, p_w = _deskewed(pose, velocity, points, dk)
+    Nx = skew(line_n)
+    r = torch.einsum("nij,nj->ni", Nx, p_w - line_c)
+    J_th = -torch.einsum("nij,jk,nkl->nil", Nx, R, skew(p_local))
+    J_v = Nx * dt[..., None]
+    return ResidualBlocks(r, torch.cat([Nx, J_th, J_v], dim=-1), valid)
+
+
+def plane_residuals_deskew(pose: Pose, velocity: Tensor, points: Tensor,
+                           plane_c: Tensor, plane_n: Tensor, valid: Tensor,
+                           dk: DeskewTerms) -> ResidualBlocks:
+    """Deskew-aware point-to-plane over [dt, dtheta, dv]."""
+    R, p_local, dt, p_w = _deskewed(pose, velocity, points, dk)
+    r = (plane_n * (p_w - plane_c)).sum(dim=-1)[:, None]
+    J_th = -torch.einsum("ni,ij,njk->nk", plane_n, R,
+                         skew(p_local))[:, None, :]
+    J_v = plane_n[:, None, :] * dt[:, None, :]
+    return ResidualBlocks(
+        r, torch.cat([plane_n[:, None, :], J_th, J_v], dim=-1), valid)

@@ -155,7 +155,7 @@ def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
                                                 gate_scale)
         n_corr = edges.valid.float().sum() + planes.valid.float().sum()
 
-        def build(p, edges=edges, planes=planes):
+        def build(p, v, edges=edges, planes=planes):
             eb = icp.edge_residuals(p, edges.points, edges.line_c,
                                     edges.line_n, edges.valid)
             pb = icp.plane_residuals(p, planes.points, planes.plane_c,
@@ -163,7 +163,8 @@ def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
             return [eb, pb], [gn.huber_weights(eb, cfg.huber_delta),
                               gn.huber_weights(pb, cfg.huber_delta)]
 
-        out = gn.gauss_newton(build, pose, n_iters=cfg.gn_iterations)
+        out = gn.gauss_newton(build, pose, torch.zeros_like(pose.t),
+                              n_iters=cfg.gn_iterations)
         pose = select_pose(n_corr >= cfg.min_correspondences, out.pose, pose)
         cost = out.cost
     return OdometryResult(pose_curr2last=pose, n_correspondences=n_corr,

@@ -1,5 +1,6 @@
 """Fixed-capacity spatial-hash voxel map (port of the JAX package's
-``slam/voxel_map.py``: create, insert, evict, grouped octant gather).
+``slam/voxel_map.py``: create, insert, evict, the one-level planar and the
+grouped octant gathers).
 
 * ``points``   (H, P, 3) — slab of up to P points per hash slot; unoccupied
   entries hold ``EMPTY_COORD`` in every component (an invariant kept by
@@ -186,6 +187,18 @@ def neighbor_cells8(q: Tensor, cell_size: float) -> Tensor:
     i = torch.arange(8, device=q.device)
     off = torch.stack([(i >> 2) & 1, (i >> 1) & 1, i & 1], dim=1)
     return low[:, None, :] + off[None, :, :]
+
+
+def gather_candidates_planar(vmap: VoxelHashMap, query: Tensor) -> Tensor:
+    """One-level octant gather in planar (3, Q, 8P) layout: the 8 slabs
+    around every query. Unoccupied entries hold EMPTY_COORD by the table
+    invariant; masked queries are not filtered (their callers AND the query
+    mask into every validity gate)."""
+    H, P = vmap.table_size, vmap.slab_capacity
+    Q = query.shape[0]
+    slots = _hash_cells(neighbor_cells8(query, vmap.cell_size), H)   # (Q, 8)
+    cand = vmap.points.permute(2, 0, 1)[:, slots]                   # (3,Q,8,P)
+    return cand.reshape(3, Q, 8 * P)
 
 
 def gather_candidates_rows_grouped(vmap: VoxelHashMap, query: Tensor,
