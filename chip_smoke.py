@@ -11,23 +11,34 @@ Phases (any failure raises and exits non-zero before the result line):
 2. kernels against their plain PyTorch versions on the card:
    * pick_rounds, odo_corr, select_fit on every call of one real frame of
      the full-width lidar-only pipeline (16 rings x 1800 points, 32k-slot
-     maps) and on seeded tie / sentinel cases; pick_rounds bit-equal;
-     odo_corr indices and rings exact, d2 within 1e-6 relative; select_fit
-     d2 within 1e-5 relative, centres within 1e-4 m, normals within 1e-4
-     of parallel, validity equal except where a plain gate value lies
-     within 1e-5 (relative) of its threshold;
+     maps); pick_rounds bit-equal; odo_corr indices and rings exact, d2
+     bit-equal; select_fit d2 within 1e-5 relative, centres within 1e-4
+     m, normals within 1e-4 of parallel, validity equal except where a
+     plain gate value lies within 1e-5 (relative) of its threshold;
+   * seeded adversarial cases, bit-equal: pick_rounds at the frame's
+     (16, 2048) with signed zeros, exact ties, interleaved sector ids, an
+     empty sector, sectors with fewer valid columns than 6, suppression
+     across sector edges with a broken gap chain; odo_corr at K=0 and
+     K=16 with duplicates across the kernel's slice edges, an
+     all-sentinel slice, rows with no nearby-ring partner and ragged N;
+     select_fit rows cases with ties;
    * select_fit on the planar (3, Q, 8P) calls of one real
      pre-initialisation LIO frame (the one-level mapping gather), same
      tolerances;
+   * pick_rounds and odo_corr on the calls of a 64-ring frame (bench.py's
+     MSF_BENCH_RINGS=64 configuration: (64, 2048) planes, edge N=768
+     M=7680, plane N=1536 M=8192) and the seeded pick cases at (64, 2048);
    * knn at scripts/bench_knn.py's shapes (Q=4096, M=65536, k=8 and k=5,
      10% of the refs masked) and on seeded cases (fewer valid refs than k,
      duplicated refs, ragged Q and M): d2 bit-equal, indices equal;
-   per kernel the event time (median of 50 launches around the wrapper),
-   the device-only time (torch.profiler kernel time over 50 launches; a
-   batch of 50 back-to-back launches between one event pair beside it),
-   the plain version's time, for knn the library yardstick (cdist + masked
-   fill + topk), and the bound max(bytes / 3.35 TB/s, operations / 67
-   TFLOP/s);
+   per kernel and call site the event time (median of 50 launches around
+   the wrapper), the device-only time (torch.profiler kernel time over 50
+   launches; a batch of 50 back-to-back launches between one event pair
+   beside it), the plain version's time, for knn the library yardstick
+   (cdist + masked fill + topk), the bound max(bytes / 3.35 TB/s,
+   operations / 67 TFLOP/s), and for pick_rounds and odo_corr the launch
+   (clusters, blocks, threads, shared memory; registers and spills come
+   from the ptxas lines of the build);
 3. the knn path: its entry point ``knn_auto`` at both bench shapes, with
    launches counted around it;
 4. the lidar-only main path through ``SlamPipeline(cfg, device="cuda")``:
@@ -228,13 +239,15 @@ def bench_drive(n):
     return out
 
 
-def images(synthetic, preprocess, fcfg, world, poses, noise, seed_of, device):
+def images(synthetic, preprocess, fcfg, world, poses, noise, seed_of, device,
+           n_rings=16):
     imgs = []
     for i, (t, R) in enumerate(poses):
-        xyz, ring = synthetic.simulate_scan(world, t, R, n_rings=16,
+        xyz, ring = synthetic.simulate_scan(world, t, R, n_rings=n_rings,
                                             pts_per_ring=1800, noise=noise,
                                             seed=seed_of(i))
-        imgs.append(preprocess.preprocess_scan(xyz, ring, fcfg, num_rings=16,
+        imgs.append(preprocess.preprocess_scan(xyz, ring, fcfg,
+                                               num_rings=n_rings,
                                                device=device))
     return imgs
 
@@ -295,13 +308,115 @@ def check_odo(torch, oc, q, planes, K, nearby, tag):
     err = 0.0
     for f in ("a_d2", "c_d2", "cand_d2"):
         g, w = getattr(got, f), getattr(want, f)
-        rel = ((g - w).abs() / w.abs().clamp(min=1e-30))
-        if rel.numel() and float(rel.max()) > 1e-6:
-            fail(f"odo_corr {tag}: {f} off by {float(rel.max())} relative")
-        if g.numel():
-            fin = w < 1e37
-            err = max(err, float((g - w).abs()[fin].max()) if fin.any() else 0.0)
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            fail(f"odo_corr {tag}: {f} not bit-equal to the plain version "
+                 f"({int((g != w).sum())} entries)")
+        fin = w < 1e37
+        if fin.any():
+            err = max(err, float((g - w).abs()[fin].max()))
     return err
+
+
+def pick_adversarial(torch, rng, R, W, dev):
+    """Seeded (score_c, score_f, sector, cb0) planes of the cases the
+    sorted walk must get right (tests/test_torch_kernel_algorithms.py)."""
+    S = 6
+    for name in ("ties", "signed zeros", "interleaved sectors",
+                 "empty and thin sectors", "boundary suppression"):
+        curv = (rng.integers(0, 6, (R, W)) * 0.25).astype(np.float32)
+        sec = np.sort(rng.integers(0, S, (R, W)), axis=1)
+        sec[:, :5] = -1
+        ok = rng.uniform(size=(R, W)) > 0.2
+        cb0 = np.cumsum(rng.uniform(size=(R, W)) > 0.9, axis=1)
+        if name == "signed zeros":          # -curv is -0.0; +0.0 planted
+            curv[:, ::3] = 0.0
+            curv[:, 1::7] = -0.0
+        elif name == "interleaved sectors":
+            sec = rng.integers(-1, S, (R, W))
+        elif name == "empty and thin sectors":
+            sec = np.where(sec == 2, 3, sec)
+            for r in range(R):
+                thin = np.flatnonzero(sec[r] == 4)
+                ok[r, thin] = False
+                ok[r, thin[:3]] = True
+                curv[r, thin[:3]] = 1.0
+        elif name == "boundary suppression":
+            curv[:] = 1.0
+            curv[:, ::2] = 0.0
+            ok[:] = True
+            cb0 = np.cumsum((np.arange(W) % 7) == 0)[None, :].repeat(R, 0)
+        neg = np.float32(-1e18)
+        planes = (np.where(ok & (curv > 0.3), curv, neg),
+                  np.where(ok & (curv < 0.1), -curv, neg), sec, cb0)
+        yield name, tuple(
+            torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+            for a, dt in zip(planes, (np.float32, np.float32, np.int32,
+                                      np.int32)))
+
+
+def odo_adversarial(torch, oc, rng, N, M0, K, dev):
+    """Seeded (q, planes) with duplicates across the kernel's slice edges,
+    an all-sentinel slice, queries on a ring with no nearby partner and a
+    ragged query count."""
+    xyz = rng.uniform(-8, 8, (M0, 3)).astype(np.float32)
+    ring = rng.integers(0, 16, M0).astype(np.int32)
+    mask = rng.uniform(size=M0) > 0.1
+    M = M0 + (-M0) % (K * 128 if K else 128)
+    L16, L8 = M // 16, M // 8
+    for cut in (L16, 3 * L8, 5 * L16):
+        xyz[cut - 1] = xyz[cut] = xyz[cut + 5]
+        ring[cut - 1] = ring[cut] = ring[cut + 5]
+        mask[cut - 1] = mask[cut] = mask[cut + 5] = True
+    mask[2 * L16:3 * L16] = False
+    ring[-40:] = 100
+    mask[-40:] = True
+    q = rng.uniform(-8, 8, (N, 3)).astype(np.float32)
+    q[:10] = xyz[-40:-30]
+    q[10:20] = xyz[L16 + 5]
+    q[20:30] = xyz[3 * L8 + 5]
+    t = [torch.from_numpy(a).to(dev) for a in (q, xyz, mask, ring)]
+    return t[0], oc.ref_planes(t[1], t[2], t[3], K)
+
+
+def pick_work(R, W, kw):
+    """(bytes, operations) of one pick_rounds call."""
+    n_picks = kw["n_sharp"] + -(-kw["n_rest"] // kw["rest_T"]) * kw["rest_T"] \
+        + kw["n_flat"]
+    return R * W * 16 + R * W + n_picks * R * kw["S"] * 4, R * W * n_picks
+
+
+def odo_work(N, M, K):
+    """(bytes, operations) of one odo_corr call."""
+    return N * 12 + M * 16 + N * (5 + 3 * K) * 4, N * M * 15
+
+
+def pick_site(c, args, kw):
+    """Time one pick_rounds call site and print it with its launch."""
+    torch, pr = c.torch, c.pr
+    R, W = args[0].shape
+    t = kernel_times(torch, "pick_rounds", lambda: pr.pick_rounds(*args, **kw),
+                     lambda: pr.pick_rounds_plain(*args, **kw))
+    b, by = bound_ms(*pick_work(R, W, kw))
+    g = pr.launch_geometry(W, kw["S"])
+    say(f"  pick_rounds ({R}, {W}): {fmt(t)}, bound {b:.5f} ms ({by}); "
+        f"grid {g['cluster']} x {R} blocks in clusters of {g['cluster']}, "
+        f"{g['threads']} threads, {g['smem']} B dynamic shared memory")
+    return t
+
+
+def odo_site(c, q, planes, K, nb):
+    """Time one odo_corr call site and print it with its launch."""
+    torch, oc = c.torch, c.oc
+    N, M = q.shape[0], planes.shape[1]
+    t = kernel_times(torch, "odo_corr",
+                     lambda: oc.odo_corr_planes(q, planes, K, nb),
+                     lambda: oc.odo_corr_plain(q, planes, K, nb))
+    b, by = bound_ms(*odo_work(N, M, K))
+    g = oc.launch_geometry(N, M, K)
+    say(f"  odo_corr K={K} N={N} M={M}: {fmt(t)}, bound {b:.5f} ms ({by}); "
+        f"{g['blocks']} blocks in clusters of {g['cluster']}, 256 threads, "
+        f"{g['smem']} B dynamic shared memory")
+    return t
 
 
 def plain_select(sf, cand, q, r2s, r2w, kw):
@@ -495,11 +610,12 @@ def profile_frames(torch, run, label):
                   f" ms over {sum(e.count for e in mine)} launches")
 
 
-def lidar_kernel_phase(c, rows):
-    """Capture one real lidar-only frame's kernel calls and hold each kernel
-    to its plain version (plus seeded tie / sentinel cases)."""
-    torch, pr, oc, sf = c.torch, c.pr, c.oc, c.sf
-    calls = {"pick_rounds": [], "odo_corr": [], "select_fit": []}
+def capture_frame(c, cfg, n_rings, patches):
+    """The kernel calls of the third frame of the bench drive through the
+    lidar-only pipeline: ``patches`` are (module, attribute, wrapper)
+    triples; returns each attribute's calls as (cloned args, kwargs)."""
+    torch = c.torch
+    calls = {attr: [] for _, attr, _ in patches}
 
     def recorder(name, fn):
         def wrapped(*a, **kw):
@@ -508,57 +624,49 @@ def lidar_kernel_phase(c, rows):
             return fn(*a, **kw)
         return wrapped
 
-    cap_imgs = images(c.synthetic, c.preprocess, c.cfg.features,
-                      c.bench_world, bench_drive(3), 0.004,
-                      lambda i: 100 + i, c.dev)
-    pipe = c.SlamPipeline(c.cfg, device="cuda")
-    for img in cap_imgs[:2]:
+    imgs = images(c.synthetic, c.preprocess, cfg.features, c.bench_world,
+                  bench_drive(3), 0.004, lambda i: 100 + i, c.dev,
+                  n_rings=n_rings)
+    pipe = c.SlamPipeline(cfg, device="cuda")
+    for img in imgs[:2]:
         pipe.process_ring_image(img, 0.0)
-    patches = [(c.features, "pick_rounds", pr.pick_rounds),
-               (c.odometry, "odo_corr", oc.odo_corr),
-               (c.odometry, "select_fit", sf.select_fit),
-               (c.mapping, "select_fit", sf.select_fit)]
     for mod, attr, fn in patches:
         setattr(mod, attr, recorder(attr, fn))
     try:
-        pipe.process_ring_image(cap_imgs[2], 0.2)
+        pipe.process_ring_image(imgs[2], 0.2)
     finally:
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
     torch.cuda.synchronize()
+    return calls
+
+
+def lidar_kernel_phase(c, rows):
+    """Capture one real lidar-only frame's kernel calls and hold each kernel
+    to its plain version (plus seeded tie / sentinel cases)."""
+    torch, pr, oc, sf = c.torch, c.pr, c.oc, c.sf
+    calls = capture_frame(c, c.cfg, 16, [
+        (c.features, "pick_rounds", pr.pick_rounds),
+        (c.odometry, "odo_corr", oc.odo_corr),
+        (c.odometry, "select_fit", sf.select_fit),
+        (c.mapping, "select_fit", sf.select_fit)])
     counts = {k: len(v) for k, v in calls.items()}
     if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 6}:
         fail(f"captured calls per frame {counts}")
     rng = np.random.default_rng(0)
     dev = c.dev
 
-    # pick_rounds: the frame's planes + seeded ties / sentinels
+    # pick_rounds: the frame's planes + seeded adversarial cases
     row = rows["pick_rounds"] = Row()
     (args, kw), = calls["pick_rounds"]
     check_pick(torch, pr, args, kw, "frame")
     R, W = args[0].shape
-    curv = torch.from_numpy((rng.integers(0, 6, (R, W)) * 0.25)
-                            .astype(np.float32)).to(dev)
-    sec = torch.from_numpy(np.sort(rng.integers(0, 6, (R, W)), axis=1)
-                           .astype(np.int32)).to(dev)
-    sec[:, :5] = -1
-    ok = torch.from_numpy(rng.uniform(size=(R, W)) > 0.2).to(dev)
-    neg = torch.full((), -1e18, device=dev)
-    cb0 = torch.from_numpy(np.cumsum(rng.uniform(size=(R, W)) > 0.9, axis=1)
-                           .astype(np.int32)).to(dev)
-    seeded = (torch.where(ok & (curv > 0.3), curv, neg).contiguous(),
-              torch.where(ok & (curv < 0.1), -curv, neg).contiguous(),
-              sec.contiguous(), cb0.contiguous())
-    check_pick(torch, pr, seeded, kw, "seeded ties")
-    t = kernel_times(torch, "pick_rounds", lambda: pr.pick_rounds(*args, **kw),
-                     lambda: pr.pick_rounds_plain(*args, **kw))
-    n_picks = kw["n_sharp"] + -(-kw["n_rest"] // kw["rest_T"]) * kw["rest_T"] \
-        + kw["n_flat"]
-    nbytes = R * W * 16 + R * W + n_picks * R * kw["S"] * 4
-    row.add(t, nbytes, R * W * n_picks)
-    say(f"  pick_rounds ({R}, {W}): {fmt(t)}")
+    for name, planes in pick_adversarial(torch, rng, R, W, dev):
+        check_pick(torch, pr, planes, kw, f"seeded {name}")
+    t = pick_site(c, args, kw)
+    row.add(t, *pick_work(R, W, kw))
 
-    # odo_corr: the frame's 4 calls (2 rounds x edge, plane) + seeded case
+    # odo_corr: the frame's 4 calls (2 rounds x edge, plane) + seeded cases
     row = rows["odo_corr"] = Row()
     for i, (a, kw) in enumerate(calls["odo_corr"]):
         q = a[0].float().contiguous()
@@ -566,31 +674,21 @@ def lidar_kernel_phase(c, rows):
         K, nb = kw["K"], kw["nearby"]
         row.v["err"] = max(row.v["err"], check_odo(torch, oc, q, planes, K,
                                                    nb, f"call {i}"))
-        N, M = q.shape[0], planes.shape[1]
-        t = kernel_times(torch, "odo_corr",
-                         lambda: oc.odo_corr_planes(q, planes, K, nb),
-                         lambda: oc.odo_corr_plain(q, planes, K, nb))
-        nbytes = N * 12 + M * 16 + N * (5 + 3 * K) * 4
-        nops = N * M * 15
-        b, by = bound_ms(nbytes, nops)
-        say(f"  odo_corr K={K} N={N} M={M}: {fmt(t)}, bound {b:.5f} ms "
-              f"({by})")
-        row.add(t, nbytes, nops)
-        if i == 1:       # seeded ties / no-partner sentinels at this shape
-            xyz = a[1].clone()
-            ring = a[3].clone()
-            mask = torch.ones_like(a[2])
-            xyz[2000:2200] = xyz[1000:1200]
-            ring[2000:2200] = ring[1000:1200]
-            ring[3000:3100] = 100
-            qs = q.clone()
-            qs[:50] = xyz[3001:3051]
-            qs[50:100] = xyz[1001:1051]
-            p2 = oc.ref_planes(xyz, mask, ring, K)
-            check_odo(torch, oc, qs.contiguous(), p2, K, nb, "seeded ties")
-            if int((oc.odo_corr_planes(qs.contiguous(), p2, K, nb).c_d2
-                    >= 3e38).sum()) < 50:
-                fail("odo_corr seeded: the no-partner rows found a partner")
+        t = odo_site(c, q, planes, K, nb)
+        row.add(t, *odo_work(q.shape[0], planes.shape[1], K))
+    for K, N, M0 in ((0, 192, 1900), (16, 384, 8000), (16, 77, 2000),
+                     (0, 33, 300)):
+        qs, ps = odo_adversarial(torch, oc, rng, N, M0, K, dev)
+        check_odo(torch, oc, qs, ps, K, 2.5, f"seeded K={K} N={N}")
+        got = oc.odo_corr_planes(qs, ps, K, 2.5)
+        M = ps.shape[1]
+        if not bool((got.c_idx[:10] == M).all()) or \
+                not bool((got.a_idx[10:20] == M // 16 - 1).all()):
+            fail(f"odo_corr seeded K={K}: no-partner or tie rows wrong")
+    say(f"  odo_corr and pick_rounds seeded cases: bit-equal (duplicates "
+        f"across slice edges, an all-sentinel slice, no-partner rows, "
+        f"ragged N; signed zeros, ties, interleaved / empty / thin "
+        f"sectors, suppression across sector edges)")
 
     # select_fit: the frame's 6 calls + seeded rows cases with ties
     row = rows["select_fit"] = Row()
@@ -611,6 +709,38 @@ def lidar_kernel_phase(c, rows):
             torch, sf, torch.from_numpy(np.ascontiguousarray(cnd)).to(dev),
             torch.from_numpy(qn).to(dev), 1.0, 4.0,
             dict(k=5, mode=mode, min_count=5, min_wide=5), f"seeded {mode}"))
+
+
+def ring64_phase(c):
+    """pick_rounds and odo_corr at the 64-ring shapes (bench.py's
+    MSF_BENCH_RINGS=64 configuration): the calls of the third frame of the
+    bench drive at 64 rings, held bit-equal to the plain versions and
+    timed, and the seeded pick cases at (64, 2048)."""
+    torch, pr, oc = c.torch, c.pr, c.oc
+    cfg = c.MsfLoamConfig(
+        features=c.cfg.features,
+        mapping=c.MappingConfig(map_table_size=1 << 15, map_cell_capacity=32,
+                                max_query_points=4096,
+                                max_corner_query_points=2048))
+    calls = capture_frame(c, cfg, 64, [
+        (c.features, "pick_rounds", pr.pick_rounds),
+        (c.odometry, "odo_corr", oc.odo_corr)])
+    if [len(calls["pick_rounds"]), len(calls["odo_corr"])] != [1, 4]:
+        fail(f"64-ring frame: captured {calls}")
+    say("64-ring shapes (bench.py MSF_BENCH_RINGS=64 configuration):")
+    (args, kw), = calls["pick_rounds"]
+    check_pick(torch, pr, args, kw, "64-ring frame")
+    R, W = args[0].shape
+    for name, planes in pick_adversarial(torch, np.random.default_rng(2), R,
+                                         W, c.dev):
+        check_pick(torch, pr, planes, kw, f"64-ring seeded {name}")
+    pick_site(c, args, kw)
+    for i, (a, kw) in enumerate(calls["odo_corr"][:2]):  # edge, plane
+        q = a[0].float().contiguous()
+        K, nb = kw["K"], kw["nearby"]
+        planes = oc.ref_planes(a[1], a[2], a[3], K)
+        check_odo(torch, oc, q, planes, K, nb, f"64-ring call {i}")
+        odo_site(c, q, planes, K, nb)
 
 
 def knn_phase(c, rows):
@@ -1012,6 +1142,7 @@ def main():
     say("kernels against their plain versions:")
     lidar_kernel_phase(c, rows)
     lio_select_capture_phase(c, rows["select_fit"])
+    ring64_phase(c)
     # ---- 3. the knn path
     knn_launches = knn_phase(c, rows)
     # ---- 4. the lidar-only main path

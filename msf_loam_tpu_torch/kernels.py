@@ -24,6 +24,8 @@ import subprocess
 import time
 from typing import Dict
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -34,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -98,6 +101,25 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """One C function of a kernel library, its argument types and int
+    return type set once, when it is first looked up."""
+    fn = _FUNCS.get(symbol)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[symbol] = fn
+    return fn
+
+
+def stream(device: torch.device) -> int:
+    """Raw handle of the current CUDA stream of ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
+    building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

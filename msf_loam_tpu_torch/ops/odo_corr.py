@@ -8,7 +8,9 @@ and for K > 0 the (min, first argmin, ring) of each of K contiguous bins
 of the reference cloud. Distances are exact float32 ``dx^2+dy^2+dz^2``.
 Masked reference points sit at the 1e9 coordinate sentinel with ring 1e6;
 the cloud is padded with the same sentinels to a multiple of K*128 (128
-when K = 0), exactly as the Pallas wrapper pads it.
+when K = 0), exactly as the Pallas wrapper pads it. The kernel splits the
+cloud into slices over the blocks of a thread-block cluster and merges
+their minima in slice order (see the note at the head of the source).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from msf_loam_tpu_torch import kernels
 Tensor = torch.Tensor
 
 _INF = 3.0e38
+_LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 9
 
 
 class OdoCorr(NamedTuple):
@@ -99,24 +103,29 @@ def odo_corr_planes(q: Tensor, planes: Tensor, K: int,
         raise ValueError("odo_corr: planes must be contiguous (4, M) "
                          "float32 on the query's device, M padded to "
                          "K*128 (128 when K=0)")
-    dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = OdoCorr(torch.empty(N, **f32), torch.empty(N, **i32),
-                  torch.empty(N, **i32), torch.empty(N, **f32),
-                  torch.empty(N, **i32), torch.empty((N, K), **f32),
-                  torch.empty((N, K), **i32), torch.empty((N, K), **i32))
-    fn = kernels.library("odo_corr").odo_corr_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float] \
-        + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
+    # all eight outputs are views of one allocation
+    buf = torch.empty(N * (5 + 3 * K), dtype=torch.int32, device=q.device)
+    p = buf.split([N] * 5 + [N * K] * 3)
+    f32 = torch.float32
+    out = OdoCorr(p[0].view(f32), p[1], p[2], p[3].view(f32), p[4],
+                  p[5].view(f32).view(N, K), p[6].view(N, K), p[7].view(N, K))
+    fn = kernels.function("odo_corr", "odo_corr_launch", _LAUNCH_ARGS)
     err = fn(q.data_ptr(), planes.data_ptr(), N, M, K, nearby,
-             *(t.data_ptr() for t in out),
-             torch.cuda.current_stream(dev).cuda_stream)
+             *(t.data_ptr() for t in out), kernels.stream(q.device))
     kernels.check(err, "odo_corr")
     kernels.LAUNCHES["odo_corr"] += 1
     return out
+
+
+def launch_geometry(N: int, M: int, K: int) -> dict:
+    """Blocks per cluster, blocks and dynamic shared memory bytes per block
+    of the kernel's launch at these sizes (on the current CUDA device)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    fn = kernels.function("odo_corr", "odo_corr_geometry",
+                          [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+    kernels.check(fn(N, M, K, *(ctypes.addressof(o) for o in out)),
+                  "odo_corr geometry")
+    return dict(zip(("cluster", "blocks", "smem"), (o.value for o in out)))
 
 
 def odo_corr(q_world: Tensor, ref_xyz: Tensor, ref_mask: Tensor,

@@ -7,7 +7,10 @@ composed as in ``extract_features``: sharp (T=1) -> less-sharp (T=rest_T)
 -> flat (T=1) with chained suppression; per sector, iterated masked
 argmax with ties to the lowest index; a within-round dominance test; and
 +-nsup gap-chain suppression. The kernel and the plain version agree bit
-for bit (they only compare floats).
+for bit (they only compare floats). The kernel gets the same picks another
+way: it sorts each sector's columns once per score plane (a cluster of
+blocks per ring row) and walks them from a per-sector cursor (see the
+note at the head of the source).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from msf_loam_tpu_torch import kernels
 Tensor = torch.Tensor
 
 _BIG = 1.0e18
+_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _round_plain(score: Tensor, suppressed: Tensor, sector: Tensor,
@@ -114,17 +118,29 @@ def pick_rounds(score_c: Tensor, score_f: Tensor, sector: Tensor,
                              f"({R}, {W}) {dt} tensor on {score_c.device}")
     n_rest_rounds = -(-n_rest // rest_T)
     nc = n_sharp + n_rest_rounds * rest_T
-    picks = torch.empty((nc + n_flat, R, S), dtype=torch.int32,
-                        device=score_c.device)
-    sup = torch.empty((R, W), dtype=torch.bool, device=score_c.device)
-    lib = kernels.library("pick_rounds")
-    fn = lib.pick_rounds_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    # both outputs are views of one allocation
+    n_picks = (nc + n_flat) * R * S
+    buf = torch.empty(4 * n_picks + R * W, dtype=torch.uint8,
+                      device=score_c.device)
+    p, s = buf.split([4 * n_picks, R * W])
+    picks = p.view(torch.int32).view(nc + n_flat, R, S)
+    sup = s.view(torch.bool).view(R, W)
+    fn = kernels.function("pick_rounds", "pick_rounds_launch", _LAUNCH_ARGS)
     err = fn(score_c.data_ptr(), score_f.data_ptr(), sector.data_ptr(),
              cb0.data_ptr(), picks.data_ptr(), sup.data_ptr(), R, W, S, nsup,
              n_sharp, n_rest_rounds, rest_T, n_flat,
-             torch.cuda.current_stream(score_c.device).cuda_stream)
+             kernels.stream(score_c.device))
     kernels.check(err, "pick_rounds")
     kernels.LAUNCHES["pick_rounds"] += 1
     return picks[:nc], picks[nc:], sup
+
+
+def launch_geometry(W: int, S: int) -> dict:
+    """Blocks per cluster (one cluster per ring row), threads per block and
+    dynamic shared memory bytes per block of the kernel's launch."""
+    out = [ctypes.c_int() for _ in range(3)]
+    fn = kernels.function("pick_rounds", "pick_rounds_geometry",
+                          [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+    kernels.check(fn(W, S, *(ctypes.addressof(o) for o in out)),
+                  "pick_rounds geometry")
+    return dict(zip(("cluster", "threads", "smem"), (o.value for o in out)))
