@@ -12,33 +12,42 @@ Phases (any failure raises and exits non-zero before the result line):
    * pick_rounds, odo_corr, select_fit on every call of one real frame of
      the full-width lidar-only pipeline (16 rings x 1800 points, 32k-slot
      maps); pick_rounds bit-equal; odo_corr indices and rings exact, d2
-     bit-equal; select_fit d2 within 1e-5 relative, centres within 1e-4
-     m, normals within 1e-4 of parallel, validity equal except where a
-     plain gate value lies within 1e-5 (relative) of its threshold;
+     bit-equal; select_fit d2 bit-equal, centres within 1e-4 m, normals
+     within 1e-4 of parallel, validity equal except where a plain gate
+     value lies within 1e-5 (relative) of its threshold; each mapping
+     round's pair launch (line + plane2 in one launch,
+     ``select_fit_pair``) against its two plain calls, and each of its
+     halves alone;
    * seeded adversarial cases, bit-equal: pick_rounds at the frame's
      (16, 2048) with signed zeros, exact ties, interleaved sector ids, an
      empty sector, sectors with fewer valid columns than 6, suppression
      across sector edges with a broken gap chain; odo_corr at K=0 and
      K=16 with duplicates across the kernel's slice edges, an
      all-sentinel slice, rows with no nearby-ring partner and ragged N;
-     select_fit rows cases with ties;
-   * select_fit on the planar (3, Q, 8P) calls of one real
+     select_fit rows cases with ties and a seeded pair;
+   * select_fit on the planar (3, Q, 8P) pair calls of one real
      pre-initialisation LIO frame (the one-level mapping gather), same
      tolerances;
-   * pick_rounds and odo_corr on the calls of a 64-ring frame (bench.py's
-     MSF_BENCH_RINGS=64 configuration: (64, 2048) planes, edge N=768
-     M=7680, plane N=1536 M=8192) and the seeded pick cases at (64, 2048);
+   * pick_rounds, odo_corr and select_fit on the calls of a 64-ring frame
+     (bench.py's MSF_BENCH_RINGS=64 configuration: (64, 2048) planes, edge
+     N=768 M=7680, plane N=1536 M=8192; select_fit odometry plane
+     (3, 1536, 8), mapping pair line (2048, 768) + plane2 (4096, 768)) and
+     the seeded pick cases at (64, 2048);
    * knn at scripts/bench_knn.py's shapes (Q=4096, M=65536, k=8 and k=5,
      10% of the refs masked) and on seeded cases (fewer valid refs than k,
      duplicated refs, ragged Q and M): d2 bit-equal, indices equal;
    per kernel and call site the event time (median of 50 launches around
    the wrapper), the device-only time (torch.profiler kernel time over 50
    launches; a batch of 50 back-to-back launches between one event pair
-   beside it), the plain version's time, for knn the library yardstick
-   (cdist + masked fill + topk), the bound max(bytes / 3.35 TB/s,
-   operations / 67 TFLOP/s), and for pick_rounds and odo_corr the launch
-   (clusters, blocks, threads, shared memory; registers and spills come
-   from the ptxas lines of the build);
+   beside it), the wrapper's host cost (event minus device-only), the
+   plain version's time, for knn the library yardstick (cdist + masked
+   fill + topk), the bound max(bytes / 3.35 TB/s, operations / 67
+   TFLOP/s), for knn also the instruction-issue bound under -fmad=false
+   (9 float instructions a pair over 132 SMs x 128 lanes at the card's
+   maximum SM clock from nvidia-smi), and the launch (clusters, blocks,
+   threads, shared memory, registers, local bytes and residency from the
+   CUDA runtime; the ptxas lines of the build give each instantiation's
+   registers, spills and shared memory);
 3. the knn path: its entry point ``knn_auto`` at both bench shapes, with
    launches counted around it;
 4. the lidar-only main path through ``SlamPipeline(cfg, device="cuda")``:
@@ -46,8 +55,9 @@ Phases (any failure raises and exits non-zero before the result line):
    < 0.05 m), the first 3 frames again with ``device="cpu"`` (plain
    versions; mapped poses within 1e-3 m / 1e-3), speed over 30 distinct
    frames of the bench.py drive with launches counted (1 pick_rounds + 4
-   odo_corr + 6 select_fit per frame, one extra pick_rounds on the first
-   frame), host-clock stage times over 5 frames and a profile of 3;
+   odo_corr + 4 select_fit per frame: 2 odometry calls and one pair per
+   mapping round; one extra pick_rounds on the first frame), host-clock
+   stage times over 5 frames and a profile of 3;
 5. the LIO path through ``SlamPipeline.add_imu`` + ``process_ring_image``
    on tests/test_lio_pipeline.py's distorted corridor drive (V0 = (1.2,
    0.4, 0) m/s, 0.25 rad/s yaw, 400 Hz IMU, init_frames=6,
@@ -56,7 +66,7 @@ Phases (any failure raises and exits non-zero before the result line):
    from the card's state (mapped poses within 1e-3 m / 1e-3, velocity
    within 1e-2 m/s); speed over 30 distinct frames at full width (the
    bench.py LIO configuration, tight coupling, ~40-sample IMU windows)
-   with launches counted per frame (1 pick_rounds + 4 odo_corr + 6
+   with launches counted per frame (1 pick_rounds + 4 odo_corr + 4
    select_fit on every post-init frame), host-clock time per LIO stage
    over 5 frames, and a torch.profiler trace of 3 post-init frames.
 
@@ -152,8 +162,10 @@ def device_events(prof):
 
 
 def device_only_ms(torch, fn, key, reps=REPS):
-    """Device time per call of the kernels whose names hold ``key``, from a
-    torch.profiler trace of ``reps`` calls; None if the trace has none."""
+    """Device time per launch of the kernels whose names hold ``key``, from
+    a torch.profiler trace of ``reps`` calls (every wrapper call is one
+    launch; dividing by the launches the trace holds keeps a dropped event
+    from lowering the time); None if the trace has none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -162,8 +174,9 @@ def device_only_ms(torch, fn, key, reps=REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(self_dev_us(e) for e in device_events(prof) if key in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    mine = [e for e in device_events(prof) if key in e.key]
+    us, n = sum(self_dev_us(e) for e in mine), sum(e.count for e in mine)
+    return us / 1e3 / n if us > 0 and n else None
 
 
 def kernel_times(torch, name, fn, plain_fn, plain_reps=10):
@@ -175,6 +188,14 @@ def kernel_times(torch, name, fn, plain_fn, plain_reps=10):
     t["device_ms"] = dev if dev is not None else t["batch_ms"]
     t["device_from"] = "profiler" if dev is not None else "batch"
     return t
+
+
+def issue_ms(c, pairs, per_pair=9):
+    """knn's instruction-issue bound under -fmad=false: ``per_pair`` float
+    instructions a pair (3 subtractions, 3 multiplications, 2 additions,
+    the compare) over 132 SMs x 128 lanes at the card's maximum SM clock
+    (nvidia-smi, this run)."""
+    return pairs * per_pair / (132 * 128 * c.sm_clock_mhz * 1e6) * 1e3
 
 
 def bound_ms(nbytes, nops):
@@ -210,8 +231,25 @@ class Row:
 
 def fmt(t):
     return (f"kernel {t['ms']:.4f} ms (events), device {t['device_ms']:.4f} "
-            f"ms ({t['device_from']}; batch {t['batch_ms']:.4f}), plain "
+            f"ms ({t['device_from']}; batch {t['batch_ms']:.4f}), wrapper "
+            f"host cost {t['ms'] - t['device_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms")
+
+
+def ptxas_entries(log):
+    """(template arguments, registers, spill bytes, shared bytes) of each
+    kernel entry in an ``nvcc -Xptxas -v`` log."""
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        name = re.search(r"'([^']+)'", block).group(1)
+        targs = ",".join(re.findall(r"Li(\d+)E", name))
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append((targs, int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0,
+                    int(smem.group(1)) if smem else 0))
+    return out
 
 
 # --------------------------------------------------------------- scenes
@@ -472,15 +510,16 @@ def gate_margins(torch, sf, x, y, z, q, r2s, r2w, g):
     return m
 
 
-def check_select(torch, sf, cand, q, r2s, r2w, kw, tag):
-    got = sf.select_fit(cand, q, r2s, r2w, **kw)
+def check_select(torch, sf, cand, q, r2s, r2w, kw, tag, got=None):
+    """One select_fit result (``got``, else a fresh kernel call) against
+    the plain version on the same inputs."""
+    if got is None:
+        got = sf.select_fit(cand, q, r2s, r2w, **kw)
     x, y, z, g, want = plain_select(sf, cand, q, r2s, r2w, kw)
     fin = want.d2 < 1e37
-    if not torch.equal(got.d2 >= 1e37, ~fin):
-        fail(f"select_fit {tag}: the in-radius sets differ")
-    rel = ((got.d2 - want.d2).abs() / want.d2.abs().clamp(min=1e-30))[fin]
-    if rel.numel() and float(rel.max()) > 1e-5:
-        fail(f"select_fit {tag}: d2 off by {float(rel.max())} relative")
+    if not torch.equal(got.d2.view(torch.int32), want.d2.view(torch.int32)):
+        fail(f"select_fit {tag}: d2 not bit-equal to the plain version "
+             f"({int((got.d2 != want.d2).sum())} entries)")
     flips = got.valid != want.valid
     n_flip = int(flips.sum())
     if n_flip:
@@ -501,23 +540,71 @@ def check_select(torch, sf, cand, q, r2s, r2w, kw, tag):
                if fin.any() else 0.0)
 
 
-def select_site(torch, sf, row, cand, q, r2s, r2w, kw, tag):
-    """Check one select_fit call site, time it and add it to ``row``."""
+def select_work(cand, q, kw):
+    """(bytes, operations) of one select_fit problem."""
+    N = q.shape[0]
+    C = cand.numel() // (3 * N) if N else 0
+    k = kw["k"]
+    return (cand.numel() * 4 + N * 12 + N * (k + 7) * 4,
+            N * C * ({"line": 40, "plane": 50, "plane2": 90}[kw["mode"]] + k))
+
+
+def cand_c(cand):
+    return cand.shape[1] // 3 if cand.dim() == 2 else cand.shape[2]
+
+
+def fmt_sf_geometry(g):
+    return (f"{g['blocks']} blocks of {g['threads']} threads, {g['G']} lanes "
+            f"a query x {g['P']} candidates a lane, {g['smem']} B shared, "
+            f"{g['regs']} registers, {g['local']} B local, {g['per_sm']} "
+            f"blocks resident per SM")
+
+
+def select_site(torch, sf, row, cand, q, r2s, r2w, kw, tag, add=True):
+    """Check one select_fit call site, time it and (``add``) add it to
+    ``row``."""
     q = q.contiguous()
     row.v["err"] = max(row.v["err"], check_select(torch, sf, cand, q, r2s,
                                                   r2w, kw, tag))
     t = kernel_times(torch, "select_fit",
                      lambda: sf.select_fit(cand, q, r2s, r2w, **kw),
                      lambda: plain_select(sf, cand, q, r2s, r2w, kw))
-    N = q.shape[0]
-    C = cand.numel() // (3 * N)
-    k = kw["k"]
-    nbytes = cand.numel() * 4 + N * 12 + N * (k + 7) * 4
-    nops = N * C * ({"line": 40, "plane": 50, "plane2": 90}[kw["mode"]] + k)
+    nbytes, nops = select_work(cand, q, kw)
     b, by = bound_ms(nbytes, nops)
+    g = sf.launch_geometry(q.shape[0], cand_c(cand))
     say(f"  select_fit {kw['mode']} {tuple(cand.shape)}: {fmt(t)}, bound "
-          f"{b:.5f} ms ({by})")
+          f"{b:.5f} ms ({by}); {fmt_sf_geometry(g)}")
+    if add:
+        row.add(t, nbytes, nops)
+    return t
+
+
+def pair_site(torch, sf, row, a, tag):
+    """One mapping round's pair launch ``a`` = (cand_a, query_a, r2s_a,
+    r2w_a, kw_a, cand_b, ...): each half against its plain call, checked
+    and timed alone, then the pair launch checked against the two plain
+    calls, timed and added to ``row``."""
+    halves = (a[:5], a[5:])
+    for (cand, q, r2s, r2w, kw), h in zip(halves, "ab"):
+        select_site(torch, sf, row, cand, q, r2s, r2w, kw, f"{tag} {h} "
+                    f"{kw['mode']} alone", add=False)
+    got = sf.select_fit_pair(*a)
+    for g, (cand, q, r2s, r2w, kw), h in zip(got, halves, "ab"):
+        row.v["err"] = max(row.v["err"], check_select(
+            torch, sf, cand, q, r2s, r2w, kw, f"{tag} pair {h}", got=g))
+    t = kernel_times(torch, "select_fit", lambda: sf.select_fit_pair(*a),
+                     lambda: [plain_select(sf, c_, q_, s_, w_, k_)
+                              for c_, q_, s_, w_, k_ in halves])
+    work = [select_work(h[0], h[1], h[4]) for h in halves]
+    nbytes, nops = sum(w[0] for w in work), sum(w[1] for w in work)
+    b, by = bound_ms(nbytes, nops)
+    g = sf.launch_geometry(a[1].shape[0], cand_c(a[0]), a[6].shape[0],
+                           cand_c(a[5]))
+    say(f"  select_fit pair {a[4]['mode']} {tuple(a[0].shape)} + "
+        f"{a[9]['mode']} {tuple(a[5].shape)} ({tag}): {fmt(t)}, bound "
+        f"{b:.5f} ms ({by}); {fmt_sf_geometry(g)}")
     row.add(t, nbytes, nops)
+    return t
 
 
 def check_knn(torch, kn, q, r, m, k, tag):
@@ -649,9 +736,10 @@ def lidar_kernel_phase(c, rows):
         (c.features, "pick_rounds", pr.pick_rounds),
         (c.odometry, "odo_corr", oc.odo_corr),
         (c.odometry, "select_fit", sf.select_fit),
-        (c.mapping, "select_fit", sf.select_fit)])
+        (c.mapping, "select_fit_pair", sf.select_fit_pair)])
     counts = {k: len(v) for k, v in calls.items()}
-    if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 6}:
+    if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 2,
+                  "select_fit_pair": 2}:
         fail(f"captured calls per frame {counts}")
     rng = np.random.default_rng(0)
     dev = c.dev
@@ -690,12 +778,15 @@ def lidar_kernel_phase(c, rows):
         f"ragged N; signed zeros, ties, interleaved / empty / thin "
         f"sectors, suppression across sector edges)")
 
-    # select_fit: the frame's 6 calls + seeded rows cases with ties
+    # select_fit: the frame's 2 odometry calls and 2 mapping pairs (one
+    # launch per call) + seeded rows cases with ties and a seeded pair
     row = rows["select_fit"] = Row()
     for i, (a, kw) in enumerate(calls["select_fit"]):
         cand, q, r2s, r2w = a
         select_site(torch, sf, row, cand, q, r2s, r2w, kw,
-                    f"call {i} {kw.get('mode')}")
+                    f"odometry call {i} {kw.get('mode')}")
+    for i, (a, _) in enumerate(calls["select_fit_pair"]):
+        pair_site(torch, sf, row, a, f"mapping round {i}")
     N, C = 1024, 256
     qn = rng.uniform(-30, 30, (N, 3)).astype(np.float32)
     off = rng.uniform(-1.5, 1.5, (N, C, 3)).astype(np.float32)
@@ -704,19 +795,32 @@ def lidar_kernel_phase(c, rows):
     cnd = qn[:, None, :] + off
     cnd[rng.uniform(size=(N, C)) < 0.2] = 1e9           # empty-slab sentinel
     cnd = np.transpose(cnd, (0, 2, 1)).reshape(N, 3 * C)
+    cnd_t = torch.from_numpy(np.ascontiguousarray(cnd)).to(dev)
+    qn_t = torch.from_numpy(qn).to(dev)
     for mode in ("line", "plane2"):
         row.v["err"] = max(row.v["err"], check_select(
-            torch, sf, torch.from_numpy(np.ascontiguousarray(cnd)).to(dev),
-            torch.from_numpy(qn).to(dev), 1.0, 4.0,
+            torch, sf, cnd_t, qn_t, 1.0, 4.0,
             dict(k=5, mode=mode, min_count=5, min_wide=5), f"seeded {mode}"))
+    # a seeded pair: rows line (1024) + planar plane2 (777 rows, ragged)
+    planar = cnd_t[:777].view(777, 3, C).permute(1, 0, 2).contiguous()
+    kw_a = dict(k=5, mode="line", min_count=5)
+    kw_b = dict(k=5, mode="plane2", min_count=5, min_wide=5)
+    got = sf.select_fit_pair(cnd_t, qn_t, 1.0, 4.0, kw_a, planar,
+                             qn_t[:777].contiguous(), 0.5, 2.0, kw_b)
+    for g, args, h in zip(got, ((cnd_t, qn_t, 1.0, 4.0, kw_a),
+                                (planar, qn_t[:777].contiguous(), 0.5, 2.0,
+                                 kw_b)), "ab"):
+        row.v["err"] = max(row.v["err"], check_select(
+            torch, sf, *args, f"seeded pair {h}", got=g))
 
 
 def ring64_phase(c):
-    """pick_rounds and odo_corr at the 64-ring shapes (bench.py's
+    """pick_rounds, odo_corr and select_fit at the 64-ring shapes (bench.py's
     MSF_BENCH_RINGS=64 configuration): the calls of the third frame of the
-    bench drive at 64 rings, held bit-equal to the plain versions and
-    timed, and the seeded pick cases at (64, 2048)."""
-    torch, pr, oc = c.torch, c.pr, c.oc
+    bench drive at 64 rings, held to the plain versions (pick_rounds and
+    odo_corr bit-equal, select_fit to its tolerances) and timed, and the
+    seeded pick cases at (64, 2048)."""
+    torch, pr, oc, sf = c.torch, c.pr, c.oc, c.sf
     cfg = c.MsfLoamConfig(
         features=c.cfg.features,
         mapping=c.MappingConfig(map_table_size=1 << 15, map_cell_capacity=32,
@@ -724,9 +828,13 @@ def ring64_phase(c):
                                 max_corner_query_points=2048))
     calls = capture_frame(c, cfg, 64, [
         (c.features, "pick_rounds", pr.pick_rounds),
-        (c.odometry, "odo_corr", oc.odo_corr)])
-    if [len(calls["pick_rounds"]), len(calls["odo_corr"])] != [1, 4]:
-        fail(f"64-ring frame: captured {calls}")
+        (c.odometry, "odo_corr", oc.odo_corr),
+        (c.odometry, "select_fit", sf.select_fit),
+        (c.mapping, "select_fit_pair", sf.select_fit_pair)])
+    counts = {k: len(v) for k, v in calls.items()}
+    if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 2,
+                  "select_fit_pair": 2}:
+        fail(f"64-ring frame: captured calls {counts}")
     say("64-ring shapes (bench.py MSF_BENCH_RINGS=64 configuration):")
     (args, kw), = calls["pick_rounds"]
     check_pick(torch, pr, args, kw, "64-ring frame")
@@ -741,6 +849,16 @@ def ring64_phase(c):
         planes = oc.ref_planes(a[1], a[2], a[3], K)
         check_odo(torch, oc, q, planes, K, nb, f"64-ring call {i}")
         odo_site(c, q, planes, K, nb)
+    sub = Row()
+    for i, (a, kw) in enumerate(calls["select_fit"]):
+        select_site(torch, sf, sub, *a, kw, f"64-ring odometry call {i}")
+    for i, (a, _) in enumerate(calls["select_fit_pair"]):
+        pair_site(torch, sf, sub, a, f"64-ring mapping round {i}")
+    o = sub.out()
+    say(f"  select_fit per 64-ring frame (2 odometry calls, 2 pairs): device "
+        f"{o['device_ms']:.4f} ms, event {o['ms']:.4f} ms, bound "
+        f"{o['bound_ms']:.5f} ms ({o['bound_by']})")
+    return sub.v["err"]
 
 
 def knn_phase(c, rows):
@@ -766,9 +884,15 @@ def knn_phase(c, rows):
         nbytes = KNN_Q * 12 + KNN_M * 13 + KNN_Q * k * 8
         nops = KNN_Q * KNN_M * 8
         b, by = bound_ms(nbytes, nops)
+        g = kn.launch_geometry(KNN_Q, k)
         say(f"  knn Q={KNN_Q} M={KNN_M} k={k}: {fmt(t)}, library (cdist + "
               f"masked fill + topk) {t_lib:.4f} ms (its d^2 within {yard:.1e} "
-              f"relative), bound {b:.5f} ms ({by})")
+              f"relative), bound {b:.5f} ms ({by}); instruction-issue bound "
+              f"{issue_ms(c, KNN_Q * KNN_M):.5f} ms; {g['blocks']} blocks in "
+              f"clusters of {g['cluster']}, {g['threads']} threads, "
+              f"{g['R']} queries a thread, lists of {g['list']}, "
+              f"{g['smem']} B shared, {g['regs']} registers, {g['local']} B "
+              f"local, {g['clusters']} clusters resident at once")
         row.add(t, nbytes, nops)
     row.library_ms = lib
     # seeded cases: fewer valid refs than k, duplicates (exact ties),
@@ -850,7 +974,7 @@ def lidar_path_phase(c):
     peak = torch.cuda.max_memory_allocated()
     steady = (n_frames - warm) / (stamps[-1] - stamps[warm - 1])
     want = {"pick_rounds": n_frames + 1, "odo_corr": 4 * n_frames,
-            "select_fit": 6 * n_frames, "knn": 0}
+            "select_fit": 4 * n_frames, "knn": 0}
     say(f"lidar speed: {steady:.2f} scans/s steady state (frames {warm}-"
           f"{n_frames - 1}), first frame {stamps[0] - t_run:.3f} s;"
           f" peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
@@ -890,8 +1014,8 @@ def lidar_path_phase(c):
 
 
 def lio_select_capture_phase(c, row):
-    """The planar (3, Q, 8P) select_fit calls of one real pre-init LIO frame
-    at full width, held to the plain version."""
+    """The planar (3, Q, 8P) select_fit pair calls of one real pre-init LIO
+    frame at full width, held to the plain version."""
     torch, sf = c.torch, c.sf
     imgs, _ = lio_images(c.synthetic, c.preprocess, c.lio_cfg.features,
                          c.lio_world, 3, c.dev)
@@ -904,25 +1028,24 @@ def lio_select_capture_phase(c, row):
     def rec(*a, **kw):
         calls.append((tuple(t.clone() if torch.is_tensor(t) else t
                             for t in a), dict(kw)))
-        return sf.select_fit(*a, **kw)
+        return sf.select_fit_pair(*a, **kw)
 
-    c.mapping.select_fit = rec
+    c.mapping.select_fit_pair = rec
     try:
         pipe.process_ring_image(imgs[2], LIO_T0 + 0.2)
     finally:
-        c.mapping.select_fit = sf.select_fit
+        c.mapping.select_fit_pair = sf.select_fit_pair
     torch.cuda.synchronize()
-    if len(calls) != 4 or any(a[0].dim() != 3 for a, _ in calls):
-        fail(f"pre-init LIO frame: {len(calls)} mapping select_fit calls, "
+    if len(calls) != 2 or any(a[0].dim() != 3 or a[5].dim() != 3
+                              for a, _ in calls):
+        fail(f"pre-init LIO frame: {len(calls)} mapping select_fit pairs, "
              f"shapes {[tuple(a[0].shape) for a, _ in calls]}")
     sub = Row()
-    for i, (a, kw) in enumerate(calls):
-        cand, q, r2s, r2w = a
-        select_site(torch, sf, sub, cand, q, r2s, r2w, kw,
-                    f"lio pre-init mapping call {i} {kw.get('mode')}")
+    for i, (a, _) in enumerate(calls):
+        pair_site(torch, sf, sub, a, f"lio pre-init mapping round {i}")
     row.v["err"] = max(row.v["err"], sub.v["err"])
     o = sub.out()
-    say(f"  select_fit planar mapping calls per pre-init frame: event "
+    say(f"  select_fit planar mapping pairs per pre-init frame: event "
           f"{o['ms']:.4f} ms, device {o['device_ms']:.4f} ms, plain "
           f"{o['plain_ms']:.3f} ms, bound {o['bound_ms']:.5f} ms "
           f"({o['bound_by']})")
@@ -1006,7 +1129,7 @@ def lio_speed_phase(c):
     if init_at is None:
         fail("LIO speed run never initialised")
     first = init_at + 1                       # first post-init (fused) frame
-    want = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 6, "knn": 0}
+    want = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0}
     bad = [i for i in range(first, n) if per_frame[i] != want]
     if bad:
         fail(f"LIO post-init frames {bad} launched {per_frame[bad[0]]}, "
@@ -1108,6 +1231,11 @@ def main():
     global CARD
     card = CARD = smi[0] if smi else CARD
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    c.sm_clock_mhz = float(clk.stdout.split()[0])
+    say(f"maximum SM clock {c.sm_clock_mhz:.0f} MHz (nvidia-smi)")
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -1122,6 +1250,11 @@ def main():
         say(f"  ptxas {name}: {len(regs)} kernel(s), {min(regs, default=0)}"
               f"-{max(regs, default=0)} registers, {spill} bytes spilled, "
               f"shared memory up to {max(smem, default=0)} bytes")
+        if name in ("select_fit", "knn"):
+            say(f"    per instantiation <{'G,P' if name == 'select_fit' else 'list,R'}>"
+                f" (registers, spill bytes, shared bytes): " + "; ".join(
+                    f"<{t}> {r}, {sp}, {sm}"
+                    for t, r, sp, sm in ptxas_entries(log)))
 
     c.cfg = MsfLoamConfig(
         features=FeatureConfig(max_points_per_ring=2048, max_less_flat=8192),
@@ -1142,7 +1275,8 @@ def main():
     say("kernels against their plain versions:")
     lidar_kernel_phase(c, rows)
     lio_select_capture_phase(c, rows["select_fit"])
-    ring64_phase(c)
+    rows["select_fit"].v["err"] = max(rows["select_fit"].v["err"],
+                                      ring64_phase(c))
     # ---- 3. the knn path
     knn_launches = knn_phase(c, rows)
     # ---- 4. the lidar-only main path

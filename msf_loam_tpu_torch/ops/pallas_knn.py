@@ -7,7 +7,9 @@ Replaces the Pallas kernel ``msf_loam_tpu/ops/pallas_knn.py``
 in d2, ties to the lowest ref index. Distances are exact float32
 ``min(((pen + dx^2) + dy^2) + dz^2, 3e38)`` with pen 0 for a valid ref and
 3e38 for a masked one (never ``|q|^2 + |r|^2 - 2 q.r``). A masked ref never
-enters the result; a slot that no valid ref fills is (3e38, -1).
+enters the result; a slot that no valid ref fills is (3e38, -1). The
+kernel splits the refs over the blocks of a thread-block cluster and merges
+their sorted lists in index order (see the note at the head of the source).
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ Tensor = torch.Tensor
 
 _INF = 3.0e38
 MAX_K = 16           # the kernel keeps its top-k in registers
-_CHUNK = 1024        # refs staged in shared memory per step (csrc/knn.cu)
-_THREADS = 128       # queries per block (csrc/knn.cu)
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+_RANKS = 8           # blocks per thread-block cluster (csrc/knn.cu)
+_WARPS = 4           # warps per block, each scanning one ref segment
+_R = 2               # queries per thread
+_LAUNCH_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p] * 3
 
 
 def _distances(query: Tensor, ref: Tensor, pen: Tensor) -> Tensor:
@@ -60,15 +64,14 @@ def knn_plain(query: Tensor, ref: Tensor, ref_mask: Tensor, k: int,
             torch.where(empty, -1, best_i).to(torch.int32))
 
 
-def split_ranges(Q: int, M: int) -> Tuple[int, int]:
-    """(S, range_len): the ref axis is cut into S contiguous ranges of
-    range_len refs (a multiple of the shared-memory chunk) so that about
-    _TARGET_BLOCKS blocks run."""
-    q_blocks = -(-Q // _THREADS)
-    chunks = max(1, -(-M // _CHUNK))
-    S = max(1, min(chunks, -(-_TARGET_BLOCKS // q_blocks)))
-    per = -(-chunks // S)
-    return -(-chunks // per), per * _CHUNK
+def launch_plan(Q: int, M: int) -> Tuple[int, int, int, int]:
+    """(ranks, tiles, R, seg) of the kernel's launch: a cluster of ``ranks``
+    blocks per tile of 32 R queries (R queries a thread), each block's
+    ``_WARPS`` warps scanning ``seg`` consecutive refs (a multiple of 4;
+    the cluster's ranks x warps segments cover M in index order)."""
+    per = -(-M // (_RANKS * _WARPS))
+    seg = max(4, -(-per // 4) * 4)
+    return _RANKS, -(-Q // (32 * _R)), _R, seg
 
 
 def knn_pallas(query: Tensor, ref: Tensor, ref_mask: Tensor,
@@ -91,22 +94,30 @@ def knn_pallas(query: Tensor, ref: Tensor, ref_mask: Tensor,
                          "float32 and ref_mask a contiguous (M,) bool tensor, "
                          "all on one device")
     dev = query.device
-    S, range_len = split_ranges(Q, M)
-    part_d = torch.empty((Q, S, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((Q, S, k), dtype=torch.int32, device=dev)
-    out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    fn = kernels.library("knn").knn_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
+    _, _, R, seg = launch_plan(Q, M)
+    # both outputs are views of one allocation
+    buf = torch.empty(2 * Q * k, dtype=torch.int32, device=dev)
+    out_i = buf[:Q * k].view(Q, k)
+    out_d = buf[Q * k:].view(torch.float32).view(Q, k)
+    fn = kernels.function("knn", "knn_launch", _LAUNCH_ARGS)
     err = fn(query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), Q, M, k,
-             S, range_len, part_d.data_ptr(), part_i.data_ptr(),
-             out_d.data_ptr(), out_i.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             seg, R, out_d.data_ptr(), out_i.data_ptr(), kernels.stream(dev))
     kernels.check(err, "knn")
     kernels.LAUNCHES["knn"] += 1
     return out_d, out_i
+
+
+def launch_geometry(Q: int, k: int) -> dict:
+    """Blocks per cluster, blocks, threads, queries per thread, static
+    shared memory bytes, registers and local (spill) bytes per thread and
+    clusters resident at once of the kernel's launch for Q queries, and its
+    list length (on the current CUDA device)."""
+    out = (ctypes.c_int * 9)()
+    fn = kernels.function("knn", "knn_geometry",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    kernels.check(fn(Q, k, out), "knn geometry")
+    return dict(zip(("cluster", "blocks", "threads", "R", "smem", "regs",
+                     "local", "clusters", "list"), out))
 
 
 def knn_auto(query: Tensor, ref: Tensor, ref_mask: Tensor,

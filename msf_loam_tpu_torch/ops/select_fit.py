@@ -8,6 +8,8 @@ coordinates >= 1e9. Per query: the k ascending squared distances within
 the strict radius, 0/1 k-NN weights, query-relative centred moments, the
 closed-form 3x3 eigensolve (8 Newton steps for cos(acos(r)/3), following
 the kernel rather than ``fitting.eigh3x3``'s arccos) and the mode's gates.
+``select_fit_pair`` runs two such problems (a mapping round's corner and
+surface calls) in one kernel launch.
 """
 
 from __future__ import annotations
@@ -157,10 +159,110 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+class _Problem(ctypes.Structure):
+    """One problem of a launch (``SelectFitProblem`` in csrc/select_fit.cu)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "cx", "cy", "cz")]
+                + [("row_stride", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in ("N", "C", "k", "mode",
+                                               "min_count", "min_wide")]
+                + [(n, ctypes.c_float) for n in ("eig_ratio", "tol",
+                                                 "cond_frac", "r2s", "r2w")]
+                + [(n, ctypes.c_void_p) for n in ("d2k", "cen", "nrm",
+                                                  "valid")])
+
+
+_LAUNCH_ARGS = [ctypes.POINTER(_Problem), ctypes.POINTER(_Problem),
+                ctypes.c_void_p]
+
+
+class _Spec(NamedTuple):
+    cand: Tensor
+    query: Tensor
+    rows: bool
+    N: int
+    C: int
+    r2s: float
+    r2w: float
+    gates: dict
+
+
+def _spec(cand: Tensor, query: Tensor, r2_strict: float, r2_wide: float, *,
+          k: int = 5, mode: str = "plane2", min_count: int = 5,
+          min_wide: int = 5, eig_ratio: float = 3.0, tol: float = 0.2,
+          cond_frac: float = 0.05) -> _Spec:
+    rows = cand.dim() == 2
+    if rows:
+        N, C = cand.shape[0], cand.shape[1] // 3
+    else:
+        N, C = cand.shape[1], cand.shape[2]
+    gates = dict(k=k, mode=mode, min_count=min_count, min_wide=min_wide,
+                 eig_ratio=_f32(eig_ratio), tol=_f32(tol),
+                 cond_frac=_f32(cond_frac))
+    return _Spec(cand, query, rows, N, C, _f32(r2_strict), _f32(r2_wide),
+                 gates)
+
+
+def _plain(sp: _Spec) -> SelectFit:
+    cand, C = sp.cand, sp.C
+    if sp.rows:
+        x, y, z = cand[:, :C], cand[:, C:2 * C], cand[:, 2 * C:]
+    else:
+        x, y, z = cand[0], cand[1], cand[2]
+    return select_fit_plain(x, y, z, sp.query, sp.r2s, sp.r2w, **sp.gates)
+
+
+def _run(specs) -> tuple:
+    """Every problem of ``specs`` (one or two) in one kernel launch on a
+    CUDA tensor; the plain version, once per problem, on a CPU tensor."""
+    dev = specs[0].cand.device
+    if any(sp.cand.device != dev for sp in specs):
+        raise ValueError("select_fit_pair: both problems on one device")
+    if dev.type == "cpu":
+        return tuple(_plain(sp) for sp in specs)
+    for sp in specs:
+        cand, query = sp.cand, sp.query
+        if cand.dtype != torch.float32 or not cand.is_contiguous() or \
+                query.shape != (sp.N, 3) or query.dtype != torch.float32 or \
+                not query.is_contiguous() or query.device != dev:
+            raise ValueError("select_fit: cand must be contiguous float32 "
+                             "(3, N, C) or (N, 3C), query contiguous (N, 3) "
+                             "float32, all on one device")
+    # every output of the launch is a view of one allocation:
+    # per problem d2 (N, k), centre (N, 3), normal (N, 3), then the flags
+    sizes = [sp.N * (sp.gates["k"] + 6) for sp in specs]
+    flag_words = [-(-sp.N // 4) for sp in specs]
+    buf = torch.empty(sum(sizes) + sum(flag_words), dtype=torch.float32,
+                      device=dev)
+    parts = buf.split(sizes + flag_words)
+    outs, probs = [], []
+    for sp, p, f in zip(specs, parts, parts[len(specs):]):
+        N, k = sp.N, sp.gates["k"]
+        d2k, cen, nrm = p.split([N * k, 3 * N, 3 * N])
+        out = SelectFit(d2k.view(N, k), cen.view(N, 3), nrm.view(N, 3),
+                        f.view(torch.uint8)[:N].view(torch.bool))
+        base = sp.cand.data_ptr()
+        if sp.rows:
+            ptrs, stride = (base, base + 4 * sp.C, base + 8 * sp.C), 3 * sp.C
+        else:
+            ptrs = (base, base + 4 * N * sp.C, base + 8 * N * sp.C)
+            stride = sp.C
+        g = sp.gates
+        probs.append(_Problem(
+            sp.query.data_ptr(), *ptrs, stride, N, sp.C, k, _MODES[g["mode"]],
+            g["min_count"], g["min_wide"], g["eig_ratio"], g["tol"],
+            g["cond_frac"], sp.r2s, sp.r2w, *(t.data_ptr() for t in out)))
+        outs.append(out)
+    fn = kernels.function("select_fit", "select_fit_launch", _LAUNCH_ARGS)
+    err = fn(ctypes.byref(probs[0]),
+             ctypes.byref(probs[1]) if len(probs) > 1 else None,
+             kernels.stream(dev))
+    kernels.check(err, "select_fit")
+    kernels.LAUNCHES["select_fit"] += 1
+    return tuple(outs)
+
+
 def select_fit(cand: Tensor, query: Tensor, r2_strict: float,
-               r2_wide: float, *, k: int = 5, mode: str = "plane2",
-               min_count: int = 5, min_wide: int = 5, eig_ratio: float = 3.0,
-               tol: float = 0.2, cond_frac: float = 0.05) -> SelectFit:
+               r2_wide: float, **kw) -> SelectFit:
     """Fused selection + fit.
 
     Args:
@@ -168,48 +270,32 @@ def select_fit(cand: Tensor, query: Tensor, r2_strict: float,
         invalid candidates carry coordinates >= 1e9.
       query: (N, 3) f32 world-frame query points.
       r2_strict / r2_wide: squared radii (rounded to float32).
+      kw: k (5), mode ("plane2"), min_count (5), min_wide (5), eig_ratio
+        (3.0), tol (0.2), cond_frac (0.05).
     """
-    rows = cand.dim() == 2
-    if rows:
-        N, C = cand.shape[0], cand.shape[1] // 3
-    else:
-        N, C = cand.shape[1], cand.shape[2]
-    r2s, r2w = _f32(r2_strict), _f32(r2_wide)
-    gates = dict(k=k, mode=mode, min_count=min_count, min_wide=min_wide,
-                 eig_ratio=_f32(eig_ratio), tol=_f32(tol),
-                 cond_frac=_f32(cond_frac))
-    if cand.device.type == "cpu":
-        if rows:
-            x, y, z = cand[:, :C], cand[:, C:2 * C], cand[:, 2 * C:]
-        else:
-            x, y, z = cand[0], cand[1], cand[2]
-        return select_fit_plain(x, y, z, query, r2s, r2w, **gates)
-    if cand.dtype != torch.float32 or not cand.is_contiguous() or \
-            query.shape != (N, 3) or query.dtype != torch.float32 or \
-            not query.is_contiguous() or query.device != cand.device:
-        raise ValueError("select_fit: cand must be contiguous float32 "
-                         "(3, N, C) or (N, 3C), query contiguous (N, 3) "
-                         "float32 on the same device")
-    dev = cand.device
-    d2k = torch.empty((N, k), dtype=torch.float32, device=dev)
-    cen = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    nrm = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    valid = torch.empty((N,), dtype=torch.bool, device=dev)
-    esz = cand.element_size()
-    base = cand.data_ptr()
-    if rows:
-        ptrs, stride = (base, base + C * esz, base + 2 * C * esz), 3 * C
-    else:
-        ptrs, stride = (base, base + N * C * esz, base + 2 * N * C * esz), C
-    fn = kernels.library("select_fit").select_fit_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 6 + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
-    err = fn(query.data_ptr(), *ptrs, stride, N, C, k, _MODES[mode],
-             min_count, min_wide, gates["eig_ratio"], gates["tol"],
-             gates["cond_frac"], r2s, r2w, d2k.data_ptr(), cen.data_ptr(),
-             nrm.data_ptr(), valid.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(err, "select_fit")
-    kernels.LAUNCHES["select_fit"] += 1
-    return SelectFit(d2k, cen, nrm, valid)
+    return _run((_spec(cand, query, r2_strict, r2_wide, **kw),))[0]
+
+
+def select_fit_pair(cand_a: Tensor, query_a: Tensor, r2_strict_a: float,
+                    r2_wide_a: float, kw_a: dict, cand_b: Tensor,
+                    query_b: Tensor, r2_strict_b: float, r2_wide_b: float,
+                    kw_b: dict) -> tuple:
+    """Two independent ``select_fit`` problems (``kw_a`` / ``kw_b``: their
+    keyword arguments) in one kernel launch on CUDA tensors: the mapping
+    round's corner and surface calls. On CPU tensors, the plain version
+    once per problem, so the results equal two ``select_fit`` calls."""
+    return _run((_spec(cand_a, query_a, r2_strict_a, r2_wide_a, **kw_a),
+                 _spec(cand_b, query_b, r2_strict_b, r2_wide_b, **kw_b)))
+
+
+def launch_geometry(Na: int, Ca: int, Nb: int = 0, Cb: int = 0) -> dict:
+    """Lanes per query, candidates per lane, blocks, threads, static shared
+    memory bytes, registers and local (spill) bytes per thread and
+    resident blocks per SM of the launch at these sizes (on the current
+    CUDA device)."""
+    out = (ctypes.c_int * 8)()
+    fn = kernels.function("select_fit", "select_fit_geometry",
+                          [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    kernels.check(fn(Na, Ca, Nb, Cb, out), "select_fit geometry")
+    return dict(zip(("G", "P", "blocks", "threads", "smem", "regs", "local",
+                     "per_sm"), out))

@@ -7,9 +7,9 @@ The 8-cell octant candidates of both feature clouds are gathered once per
 frame: with query groups (the fused frames' grouped downsample) by the
 two-level grouped gather in rows layout, without them by the one-level
 gather in planar (3, Q, 8P) layout. Every re-association round re-runs
-only the fused selection + fit kernel (``ops.select_fit``): ``line`` for
-corners, ``plane2`` (or ``plane``) for surfaces, then a 6-iteration
-Gauss-Newton.
+only the fused selection + fit kernel, one launch for both maps
+(``ops.select_fit.select_fit_pair``): ``line`` for corners, ``plane2`` (or
+``plane``) for surfaces, then a 6-iteration Gauss-Newton.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from msf_loam_tpu_torch.imu import imu_factor as imu_factor_mod
 from msf_loam_tpu_torch.imu.preintegration import sqrt_information
 from msf_loam_tpu_torch.ops import gauss_newton as gn
 from msf_loam_tpu_torch.ops import icp_residuals as icp
-from msf_loam_tpu_torch.ops.select_fit import select_fit
+from msf_loam_tpu_torch.ops.select_fit import select_fit_pair
 from msf_loam_tpu_torch.slam import voxel_map as vm
 
 Tensor = torch.Tensor
@@ -52,7 +52,7 @@ def _sq_f32(x: float) -> float:
 
 class _CandidateCache:
     """Per-frame octant gathers for both maps; each re-association round
-    runs only the fused selection + fit kernel."""
+    runs only the fused selection + fit kernel, one launch for both."""
 
     def __init__(self, corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
                  cw0: Tensor, sw0: Tensor,
@@ -73,18 +73,17 @@ class _CandidateCache:
                   sw: Tensor, cfg: MappingConfig) -> MapCorrespondences:
         cc = np.float32(self.cell_c)
         cs = np.float32(self.cell_s)
-        fc = select_fit(self.candp_c, cw.contiguous(),
-                        _sq_f32(cc * np.float32(0.5)), _sq_f32(cc),
-                        k=cfg.knn, mode="line", min_count=cfg.knn,
-                        eig_ratio=cfg.line_eig_ratio)
+        fc, fs = select_fit_pair(
+            self.candp_c, cw.contiguous(), _sq_f32(cc * np.float32(0.5)),
+            _sq_f32(cc), dict(k=cfg.knn, mode="line", min_count=cfg.knn,
+                              eig_ratio=cfg.line_eig_ratio),
+            self.candp_s, sw.contiguous(), _sq_f32(cs * np.float32(0.5)),
+            _sq_f32(cs), dict(k=cfg.knn,
+                              mode="plane2" if cfg.plane_fallback else "plane",
+                              min_count=cfg.knn, min_wide=cfg.knn,
+                              tol=cfg.plane_fit_tol))
         edge_valid = ((fc.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
                       & corner.mask & fc.valid)
-        fs = select_fit(self.candp_s, sw.contiguous(),
-                        _sq_f32(cs * np.float32(0.5)), _sq_f32(cs),
-                        k=cfg.knn,
-                        mode="plane2" if cfg.plane_fallback else "plane",
-                        min_count=cfg.knn, min_wide=cfg.knn,
-                        tol=cfg.plane_fit_tol)
         plane_valid = ((fs.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
                        & surf.mask & fs.valid)
         return MapCorrespondences(corner.xyz, fc.center, fc.normal,

@@ -101,7 +101,8 @@ def test_knn_auto_is_the_kernel_entry_and_chunking_is_exact():
                 assert j - 600 in row[:pos], row
                 n_dup += 1
     assert n_dup >= 10
-    S, rl = tknn.split_ranges(4096, 65536)
-    assert S * rl >= 65536 and rl % 1024 == 0 and S * (4096 // 128) >= 132
+    ranks, tiles, R, seg = tknn.launch_plan(4096, 65536)
+    assert ranks * 4 * seg >= 65536 and seg % 4 == 0
+    assert ranks * tiles >= 132 and tiles * 32 * R >= 4096
     with pytest.raises(ValueError):
         tknn.knn_pallas(qt, rt, mt, k=17)
