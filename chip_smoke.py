@@ -53,7 +53,7 @@ Phases (any failure raises and exits non-zero before the result line):
 4. the lidar-only main path through ``SlamPipeline(cfg, device="cuda")``:
    accuracy (10 frames of the tests/test_pipeline.py corridor drive, ATE
    < 0.05 m), the first 3 frames again with ``device="cpu"`` (plain
-   versions; mapped poses within 1e-3 m / 1e-3), speed over 30 distinct
+   versions; mapped poses within 1e-3 m / 1e-3), speed over 20 distinct
    frames of the bench.py drive with launches counted (1 pick_rounds + 4
    odo_corr + 4 select_fit per frame: 2 odometry calls and one pair per
    mapping round; one extra pick_rounds on the first frame), host-clock
@@ -64,13 +64,33 @@ Phases (any failure raises and exits non-zero before the result line):
    warmup_msgs=10): accuracy over 9 frames with tight_coupling off and on
    (ATE < 0.15 m each); 3 post-init frames again with ``device="cpu"``
    from the card's state (mapped poses within 1e-3 m / 1e-3, velocity
-   within 1e-2 m/s); speed over 30 distinct frames at full width (the
+   within 1e-2 m/s); speed over 20 distinct frames at full width (the
    bench.py LIO configuration, tight coupling, ~40-sample IMU windows)
    with launches counted per frame (1 pick_rounds + 4 odo_corr + 4
    select_fit on every post-init frame), host-clock time per LIO stage
    over 5 frames, and a torch.profiler trace of 3 post-init frames.
 
-Prints, before the last line, a ``{"kernels": [...]}`` JSON line and the
+6. the batched multi-sequence path through ``batch_pipeline.
+   init_batch_state`` + ``run_batch`` (B lanes in one set of launches): the
+   kernel calls of one real B=8 serving frame at bench.py's
+   run_batched_mode configuration (lane b on frames b..b+2 of the bench
+   drive; pick_rounds (128, 2048) bit-equal; the lane-axis odo_corr
+   bit-equal to its plain version and to one single-lane launch per lane,
+   with seeded lanes of different valid counts and an all-sentinel lane;
+   select_fit odometry (3, 3072, 8) and the pairs line (8192, 768) +
+   plane2 (32768, 768) at the tolerances above), timed as above;
+   accuracy on tests/test_batch_pipeline.py's drives (B=2, 5 frames: ATE
+   < 0.08 m per lane; 30 frames with eviction: ATE < 0.10 m, fewer than
+   9000 surface points); the first 3 frames again with ``device="cpu"``
+   (poses within 1e-3); speed at bench.py's run_batched_mode
+   configuration with the bench drive's 30 frames tiled to every lane, at
+   B=8 and B=1: launches per frame (1 pick_rounds + 4 odo_corr + 4
+   select_fit at both), aggregate scans/s, peak memory, the spread of
+   poses across lanes, and a profile of 3 frames each (all launches per
+   frame at B=8 at most 1.1x those at B=1).
+
+Prints, before the last line, a ``{"kernels": [...]}`` JSON line (the
+batched frame's call sites as rows of their own) and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Runs only where
 ``torch.cuda.is_available()``; imports nothing of JAX.
@@ -90,8 +110,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 REPS = 50
 KNN_Q, KNN_M, KNN_KS = 4096, 65536, (8, 5)   # scripts/bench_knn.py
-LIO_FRAMES, LIO_STAGE_FRAMES, LIO_PROFILE_FRAMES = 30, 5, 3
-LIDAR_FRAMES = 30
+# the lidar and LIO speed runs take 20 frames (30 before the batched path
+# joined the run, which keeps it near its earlier length)
+LIO_FRAMES, LIO_STAGE_FRAMES, LIO_PROFILE_FRAMES = 20, 5, 3
+LIDAR_FRAMES = 20
+BATCH_B, BATCH_FRAMES, BATCH_PROFILE_FRAMES = 8, 30, 3
 
 REPLACES = {
     "pick_rounds": "msf_loam_tpu/ops/pick_rounds.py:138",
@@ -423,9 +446,14 @@ def pick_work(R, W, kw):
     return R * W * 16 + R * W + n_picks * R * kw["S"] * 4, R * W * n_picks
 
 
-def odo_work(N, M, K):
-    """(bytes, operations) of one odo_corr call."""
-    return N * 12 + M * 16 + N * (5 + 3 * K) * 4, N * M * 15
+def odo_work(N, M, K, B=1):
+    """(bytes, operations) of one odo_corr call over B lanes."""
+    return B * (N * 12 + M * 16 + N * (5 + 3 * K) * 4), B * N * M * 15
+
+
+def odo_shape(q, planes):
+    """(B, N, M) of an odo_corr call (B = 1 without a lane axis)."""
+    return (q.shape[0] if q.dim() == 3 else 1), q.shape[-2], planes.shape[-1]
 
 
 def pick_site(c, args, kw):
@@ -445,15 +473,15 @@ def pick_site(c, args, kw):
 def odo_site(c, q, planes, K, nb):
     """Time one odo_corr call site and print it with its launch."""
     torch, oc = c.torch, c.oc
-    N, M = q.shape[0], planes.shape[1]
+    B, N, M = odo_shape(q, planes)
     t = kernel_times(torch, "odo_corr",
                      lambda: oc.odo_corr_planes(q, planes, K, nb),
                      lambda: oc.odo_corr_plain(q, planes, K, nb))
-    b, by = bound_ms(*odo_work(N, M, K))
-    g = oc.launch_geometry(N, M, K)
-    say(f"  odo_corr K={K} N={N} M={M}: {fmt(t)}, bound {b:.5f} ms ({by}); "
-        f"{g['blocks']} blocks in clusters of {g['cluster']}, 256 threads, "
-        f"{g['smem']} B dynamic shared memory")
+    b, by = bound_ms(*odo_work(N, M, K, B))
+    g = oc.launch_geometry(N, M, K, B)
+    say(f"  odo_corr K={K} B={B} N={N} M={M}: {fmt(t)}, bound {b:.5f} ms "
+        f"({by}); {g['lanes']} lanes, {g['blocks']} blocks in clusters of "
+        f"{g['cluster']}, 256 threads, {g['smem']} B dynamic shared memory")
     return t
 
 
@@ -663,6 +691,14 @@ def staged_patches(torch, stage_s, patches):
     return saved
 
 
+def timed(label, run):
+    """run() with its wall time printed."""
+    t0 = time.perf_counter()
+    out = run()
+    say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def restore(saved):
     for m, a, fn in saved:
         setattr(m, a, fn)
@@ -680,10 +716,11 @@ def profile_frames(torch, run, label):
     dev_us = sum(self_dev_us(e) for e in evs)
     if dev_us <= 0:
         say(f"profile {label}: no device time in the trace (not measured)")
-        return
+        return None
+    n_launch = sum(e.count for e in evs)
     say(f"profile {label}: {wall * 1e3:.1f} ms wall (traced), device busy "
           f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
-          f"{sum(e.count for e in evs)} kernel launches")
+          f"{n_launch} kernel launches")
     for e in sorted(evs, key=lambda e: -self_dev_us(e))[:15]:
         say(f"  {self_dev_us(e) / 1e3:8.3f} ms {e.count:5d}x {e.key[:90]}")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -695,12 +732,13 @@ def profile_frames(torch, run, label):
         if mine:
             say(f"  hand-written {name}: {sum(self_dev_us(e) for e in mine) / 1e3:.3f}"
                   f" ms over {sum(e.count for e in mine)} launches")
+    return dict(launches=n_launch, busy=dev_us / 1e6 / wall, wall=wall)
 
 
-def capture_frame(c, cfg, n_rings, patches):
-    """The kernel calls of the third frame of the bench drive through the
-    lidar-only pipeline: ``patches`` are (module, attribute, wrapper)
-    triples; returns each attribute's calls as (cloned args, kwargs)."""
+def record_calls(c, patches, run):
+    """Run ``run()`` with each (module, attribute, wrapper) of ``patches``
+    recording its calls; returns each attribute's calls as (cloned args,
+    kwargs)."""
     torch = c.torch
     calls = {attr: [] for _, attr, _ in patches}
 
@@ -711,16 +749,10 @@ def capture_frame(c, cfg, n_rings, patches):
             return fn(*a, **kw)
         return wrapped
 
-    imgs = images(c.synthetic, c.preprocess, cfg.features, c.bench_world,
-                  bench_drive(3), 0.004, lambda i: 100 + i, c.dev,
-                  n_rings=n_rings)
-    pipe = c.SlamPipeline(cfg, device="cuda")
-    for img in imgs[:2]:
-        pipe.process_ring_image(img, 0.0)
     for mod, attr, fn in patches:
         setattr(mod, attr, recorder(attr, fn))
     try:
-        pipe.process_ring_image(imgs[2], 0.2)
+        run()
     finally:
         for mod, attr, fn in patches:
             setattr(mod, attr, fn)
@@ -728,15 +760,32 @@ def capture_frame(c, cfg, n_rings, patches):
     return calls
 
 
+def frame_patches(c):
+    """The kernel wrappers as a frame's modules call them."""
+    return [(c.features, "pick_rounds", c.pr.pick_rounds),
+            (c.odometry, "odo_corr", c.oc.odo_corr),
+            (c.odometry, "select_fit", c.sf.select_fit),
+            (c.mapping, "select_fit_pair", c.sf.select_fit_pair)]
+
+
+def capture_frame(c, cfg, n_rings):
+    """The kernel calls of the third frame of the bench drive through the
+    lidar-only pipeline."""
+    imgs = images(c.synthetic, c.preprocess, cfg.features, c.bench_world,
+                  bench_drive(3), 0.004, lambda i: 100 + i, c.dev,
+                  n_rings=n_rings)
+    pipe = c.SlamPipeline(cfg, device="cuda")
+    for img in imgs[:2]:
+        pipe.process_ring_image(img, 0.0)
+    return record_calls(c, frame_patches(c),
+                        lambda: pipe.process_ring_image(imgs[2], 0.2))
+
+
 def lidar_kernel_phase(c, rows):
     """Capture one real lidar-only frame's kernel calls and hold each kernel
     to its plain version (plus seeded tie / sentinel cases)."""
     torch, pr, oc, sf = c.torch, c.pr, c.oc, c.sf
-    calls = capture_frame(c, c.cfg, 16, [
-        (c.features, "pick_rounds", pr.pick_rounds),
-        (c.odometry, "odo_corr", oc.odo_corr),
-        (c.odometry, "select_fit", sf.select_fit),
-        (c.mapping, "select_fit_pair", sf.select_fit_pair)])
+    calls = capture_frame(c, c.cfg, 16)
     counts = {k: len(v) for k, v in calls.items()}
     if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 2,
                   "select_fit_pair": 2}:
@@ -763,7 +812,7 @@ def lidar_kernel_phase(c, rows):
         row.v["err"] = max(row.v["err"], check_odo(torch, oc, q, planes, K,
                                                    nb, f"call {i}"))
         t = odo_site(c, q, planes, K, nb)
-        row.add(t, *odo_work(q.shape[0], planes.shape[1], K))
+        row.add(t, *odo_work(*odo_shape(q, planes)[1:], K))
     for K, N, M0 in ((0, 192, 1900), (16, 384, 8000), (16, 77, 2000),
                      (0, 33, 300)):
         qs, ps = odo_adversarial(torch, oc, rng, N, M0, K, dev)
@@ -826,11 +875,7 @@ def ring64_phase(c):
         mapping=c.MappingConfig(map_table_size=1 << 15, map_cell_capacity=32,
                                 max_query_points=4096,
                                 max_corner_query_points=2048))
-    calls = capture_frame(c, cfg, 64, [
-        (c.features, "pick_rounds", pr.pick_rounds),
-        (c.odometry, "odo_corr", oc.odo_corr),
-        (c.odometry, "select_fit", sf.select_fit),
-        (c.mapping, "select_fit_pair", sf.select_fit_pair)])
+    calls = capture_frame(c, cfg, 64)
     counts = {k: len(v) for k, v in calls.items()}
     if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 2,
                   "select_fit_pair": 2}:
@@ -1102,7 +1147,7 @@ def lio_accuracy_phase(c):
 
 
 def lio_speed_phase(c):
-    """30 distinct frames at full width (tight coupling), launches per
+    """20 distinct frames at full width (tight coupling), launches per
     frame, stage times, profile. Returns the run's launch counts."""
     torch, kernels = c.torch, c.kernels
     n = LIO_FRAMES
@@ -1186,6 +1231,254 @@ def lio_speed_phase(c):
     return launches
 
 
+# ------------------------------------------------------- batched pipeline
+def batch_cfg(c, B):
+    """bench.py run_batched_mode: per-lane tables of (1 << 15) // B slots
+    (the fused table holds the single stream's 32k), no eviction."""
+    return c.MsfLoamConfig(
+        features=c.cfg.features,
+        mapping=c.MappingConfig(map_table_size=(1 << 15) // B,
+                                map_cell_capacity=32, max_query_points=4096,
+                                max_corner_query_points=1024,
+                                map_evict_period=0))
+
+
+def stack_frames(c, frames):
+    """frames[t][b] RingImages -> one RingImage with leaves (T, B, ...)."""
+    return c.RingImage(*(
+        c.torch.stack([c.torch.stack([getattr(im, f) for im in lanes])
+                       for lanes in frames]) for f in c.RingImage._fields))
+
+
+def check_odo_lanes(torch, oc, q, planes, K, nearby, tag):
+    """A lane-axis odo_corr launch against the plain version with the same
+    lane axis and against one single-lane launch per lane, bit for bit."""
+    err = check_odo(torch, oc, q, planes, K, nearby, tag)
+    got = oc.odo_corr_planes(q, planes, K, nearby)
+    for b in range(q.shape[0]):
+        one = oc.odo_corr_planes(q[b].contiguous(), planes[b].contiguous(),
+                                 K, nearby)
+        for f in one._fields:
+            g, w = getattr(got, f)[b], getattr(one, f)
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                fail(f"odo_corr {tag}: lane {b} {f} differs from its "
+                     f"single-lane launch")
+    return err
+
+
+def odo_lanes_adversarial(torch, oc, rng, N, M0, K, dev):
+    """Four seeded lanes: two adversarial clouds (odo_adversarial), one
+    with its last two thirds masked (fewer valid points), one all
+    sentinels."""
+    qs, ps = zip(*(odo_adversarial(torch, oc, rng, N, M0, K, dev)
+                   for _ in range(4)))
+    q, planes = torch.stack(qs).contiguous(), torch.stack(ps).contiguous()
+    M = planes.shape[-1]
+    planes[1, :3, M // 3:] = 1e9
+    planes[1, 3, M // 3:] = 1e6
+    planes[2, :3] = 1e9
+    planes[2, 3] = 1e6
+    return q, planes
+
+
+def batch_kernel_phase(c, rows):
+    """One real B=8 serving frame of the batched pipeline (lane b on frames
+    b..b+2 of the bench drive, so every lane holds other data): its
+    pick_rounds, odo_corr and select_fit calls held to the plain versions,
+    odo_corr also to one single-lane launch per lane, plus seeded lanes."""
+    torch, pr, oc, sf, bp = c.torch, c.pr, c.oc, c.sf, c.bp
+    B = BATCH_B
+    cfg = batch_cfg(c, B)
+    imgs = images(c.synthetic, c.preprocess, cfg.features, c.bench_world,
+                  bench_drive(B + 2), 0.004, lambda i: 100 + i, c.dev)
+    seq = stack_frames(c, [[imgs[b + t] for b in range(B)]
+                           for t in range(3)])
+    state = bp.init_batch_state(cfg, B, 16)
+    state, _ = bp.run_batch(cfg, state, c.RingImage(*(a[:2] for a in seq)))
+    calls = record_calls(c, frame_patches(c), lambda: bp._frame_fn(
+        cfg, cfg.mapping.map_table_size, state,
+        c.RingImage(*(a[2] for a in seq)), False))
+    counts = {k: len(v) for k, v in calls.items()}
+    if counts != {"pick_rounds": 1, "odo_corr": 4, "select_fit": 2,
+                  "select_fit_pair": 2}:
+        fail(f"batched frame: captured calls {counts}")
+    say(f"batched serving frame (B={B}, bench.py run_batched_mode "
+        f"configuration):")
+    rng = np.random.default_rng(4)
+
+    row = rows["pick_rounds"] = Row()
+    (args, kw), = calls["pick_rounds"]
+    R, W = args[0].shape
+    if (R, W) != (16 * B, 2048):
+        fail(f"batched pick_rounds planes {(R, W)}")
+    check_pick(torch, pr, args, kw, f"batched frame B={B}")
+    row.add(pick_site(c, args, kw), *pick_work(R, W, kw))
+
+    row = rows["odo_corr"] = Row()
+    for i, (a, kw) in enumerate(calls["odo_corr"]):
+        q = a[0].float().contiguous()
+        K, nb = kw["K"], kw["nearby"]
+        planes = oc.ref_planes(a[1], a[2], a[3], K)
+        if q.dim() != 3 or q.shape[0] != B:
+            fail(f"batched odo_corr call {i}: queries {tuple(q.shape)}")
+        row.v["err"] = max(row.v["err"], check_odo_lanes(
+            torch, oc, q, planes, K, nb, f"batched call {i}"))
+        row.add(odo_site(c, q, planes, K, nb), *odo_work(
+            *odo_shape(q, planes)[1:], K, B))
+    for K, N, M0 in ((0, 192, 1900), (16, 384, 8000)):
+        q, planes = odo_lanes_adversarial(torch, oc, rng, N, M0, K, c.dev)
+        check_odo_lanes(torch, oc, q, planes, K, 2.5,
+                        f"seeded lanes K={K}")
+        got = oc.odo_corr_planes(q, planes, K, 2.5)
+        if not bool((got.c_idx[2] == planes.shape[-1]).all()) or \
+                not bool((got.a_d2[2] > 1e17).all()):
+            fail(f"odo_corr seeded lanes K={K}: the all-sentinel lane")
+    say("  odo_corr lane axis: every lane bit-equal to the plain version "
+        "and to its single-lane launch (frame calls; seeded lanes with "
+        "different valid counts and an all-sentinel lane)")
+
+    row = rows["select_fit"] = Row()
+    for i, (a, kw) in enumerate(calls["select_fit"]):
+        select_site(torch, sf, row, *a, kw, f"batched odometry call {i}")
+    for i, (a, _) in enumerate(calls["select_fit_pair"]):
+        pair_site(torch, sf, row, a, f"batched mapping round {i}")
+
+
+def batch_drive_images(c, B, T, step_of, fcfg, device):
+    """tests/test_batch_pipeline.py: lane b in World.corridor(seed=b),
+    straight steps ``step_of(b)`` a frame; (T, B) images and (B, T, 3)
+    ground truth."""
+    frames = [[None] * B for _ in range(T)]
+    gts = np.zeros((B, T, 3))
+    for b in range(B):
+        world = c.synthetic.World.corridor(seed=b, size=12.0)
+        for i in range(T):
+            t = step_of(b) * i
+            xyz, ring = c.synthetic.simulate_scan(
+                world, t, np.eye(3), n_rings=16, pts_per_ring=900,
+                noise=0.004, seed=10 * b + i)
+            frames[i][b] = c.preprocess.preprocess_scan(
+                xyz, ring, fcfg, num_rings=16, device=device)
+            gts[b, i] = t
+    return stack_frames(c, frames), gts
+
+
+def batch_speed(c, B, bench_imgs):
+    """The bench drive's frames tiled to B lanes at bench.py's
+    run_batched_mode configuration: launches per frame, aggregate scans/s
+    (frames 5 to T-4; the last 3 frames run under the profiler), peak
+    memory and the spread of poses across lanes."""
+    torch, kernels, bp = c.torch, c.kernels, c.bp
+    cfg = batch_cfg(c, B)
+    T, P = len(bench_imgs), BATCH_PROFILE_FRAMES
+    seq = stack_frames(c, [[img] * B for img in bench_imgs])
+    part = [c.RingImage(*(a[i:j] for a in seq))
+            for i, j in ((0, 5), (5, T - P), (T - P, T))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, p0 = bp.run_batch(cfg, bp.init_batch_state(cfg, B, 16), part[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, p1 = bp.run_batch(cfg, state, part[1])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {}
+
+    def last():
+        out["state"], out["poses"] = bp.run_batch(cfg, state, part[2])
+    prof = profile_frames(torch, last, f"batched B={B}, {P} frames")
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # init_batch_state extracts the empty previous scan: one pick_rounds
+    want = {"pick_rounds": T + 1, "odo_corr": 4 * T, "select_fit": 4 * T,
+            "knn": 0}
+    if launches != want:
+        fail(f"batched B={B}: launches {launches}, expected {want} (1 "
+             f"pick_rounds + 4 odo_corr + 4 select_fit a frame, one "
+             f"pick_rounds in init_batch_state)")
+    pos = torch.cat([p0.t, p1.t, out["poses"].t]).cpu().numpy()  # (T, B, 3)
+    spread = float(np.abs(pos - pos[:, :1]).max())
+    gt = np.asarray([t for t, _ in bench_drive(T)])
+    err = float(np.linalg.norm(pos[-1] - gt[-1], axis=-1).max())
+    n_mid = T - P - 5
+    steady = n_mid * B / (t2 - t1)
+    say(f"batched speed B={B}: {steady:.2f} scans/s aggregate steady state "
+        f"(frames 5-{T - P - 1}, {steady / B:.2f} per lane, "
+        f"{(t2 - t1) / n_mid * 1e3:.1f} ms a frame); first 5 frames with "
+        f"the initial state {(t1 - t0) * 1e3:.1f} ms; peak device memory "
+        f"{peak / 2**20:.1f} MiB; launches {launches} ({T} frames); pose "
+        f"spread across lanes {spread:.2e} m; final position error "
+        f"{err:.4f} m")
+    if not np.isfinite(pos).all() or err > 0.5:
+        fail(f"batched B={B} lost track: final error {err} m")
+    return dict(launches=launches, steady=steady, profile=prof)
+
+
+def batch_path_phase(c):
+    """Accuracy, eviction, CPU parity and speed of the batched pipeline;
+    returns the B=8 speed run's launch counts."""
+    torch, bp = c.torch, c.bp
+    fcfg = c.FeatureConfig(max_points_per_ring=1024, max_less_flat=4096)
+    cfg = c.MsfLoamConfig(features=fcfg, mapping=c.MappingConfig(
+        map_table_size=1 << 12, map_cell_capacity=16, max_query_points=1024))
+    seq, gts = batch_drive_images(
+        c, 2, 5, lambda b: np.array([0.25, 0.05 * (b + 1), 0.0]), fcfg,
+        c.dev)
+    state, poses = bp.run_batch(cfg, bp.init_batch_state(cfg, 2, 16), seq)
+    est = poses.t.cpu().numpy()
+    ates = [c.ate_rmse(est[:, b], gts[b], align=False) for b in range(2)]
+    say(f"batched accuracy (B=2, 5 frames, tests/test_batch_pipeline.py): "
+        f"ATE per lane {[round(a, 5) for a in ates]} m (bound 0.08 m)")
+    if not np.isfinite(est).all() or max(ates) >= 0.08:
+        fail(f"batched ATE {ates}")
+
+    cpu_state = bp.init_batch_state(cfg, 2, 16, device="cpu")
+    _, cpu_poses = bp.run_batch(cfg, cpu_state, c.RingImage(
+        *(a[:3].cpu() for a in seq)))
+    worst = max(float((cpu_poses.t - poses.t[:3].cpu()).abs().max()),
+                float((cpu_poses.q - poses.q[:3].cpu()).abs().max()))
+    say(f"batched cpu plain versions vs card, 3 frames x 2 lanes: max "
+        f"|dpose| {worst:.2e} (tolerance 1e-3)")
+    if worst > 1e-3:
+        fail(f"batched CPU and card poses differ by {worst}")
+
+    ecfg = c.MsfLoamConfig(features=fcfg, mapping=c.MappingConfig(
+        map_table_size=1 << 12, map_cell_capacity=32, max_query_points=1024,
+        map_evict_period=8, map_evict_radius=8.0))
+    seq, gts = batch_drive_images(
+        c, 2, 30, lambda b: np.array([0.3, 0.03 * (b + 1), 0.0]), fcfg, c.dev)
+    state, poses = bp.run_batch(ecfg, bp.init_batch_state(ecfg, 2, 16), seq)
+    est = poses.t.cpu().numpy()
+    ates = [c.ate_rmse(est[:, b], gts[b], align=False) for b in range(2)]
+    total = int(state.surf_map.count.sum())
+    say(f"batched eviction drive (B=2, 30 frames, 4096-slot lanes, period "
+        f"8, radius 8 m): ATE per lane {[round(a, 5) for a in ates]} m "
+        f"(bound 0.10 m), {total} surface points (bound 9000)")
+    if not np.isfinite(est).all() or max(ates) >= 0.10 or total >= 9000:
+        fail(f"batched eviction drive: ATE {ates}, {total} points")
+
+    bench_imgs = images(c.synthetic, c.preprocess, c.cfg.features,
+                        c.bench_world, bench_drive(BATCH_FRAMES), 0.004,
+                        lambda i: 100 + i, c.dev)
+    runs = {B: batch_speed(c, B, bench_imgs) for B in (BATCH_B, 1)}
+    p8, p1 = runs[BATCH_B]["profile"], runs[1]["profile"]
+    if p8 and p1:
+        ratio = p8["launches"] / p1["launches"]
+        say(f"batched launches per frame (all kernels, profiled): B="
+            f"{BATCH_B} {p8['launches'] / BATCH_PROFILE_FRAMES:.0f}, B=1 "
+            f"{p1['launches'] / BATCH_PROFILE_FRAMES:.0f} (ratio "
+            f"{ratio:.3f}, bound 1.1)")
+        if ratio > 1.1:
+            fail(f"batched launches grow with the lanes: ratio {ratio}")
+    say(f"batched aggregate: B={BATCH_B} {runs[BATCH_B]['steady']:.2f} "
+        f"scans/s, B=1 {runs[1]['steady']:.2f} scans/s")
+    return runs[BATCH_B]["launches"]
+
+
 # ----------------------------------------------------------------- main
 def main():
     import torch
@@ -1206,6 +1499,8 @@ def main():
     from msf_loam_tpu_torch.ops import pallas_knn as kn
     from msf_loam_tpu_torch.ops import pick_rounds as pr
     from msf_loam_tpu_torch.ops import select_fit as sf
+    from msf_loam_tpu_torch.core.pointcloud import RingImage
+    from msf_loam_tpu_torch.slam import batch_pipeline as bp
     from msf_loam_tpu_torch.slam import mapping, odometry
     from msf_loam_tpu_torch.slam import pipeline as pipe_mod
     from msf_loam_tpu_torch.slam import voxel_map as vm
@@ -1219,7 +1514,8 @@ def main():
         imu_factor_mod=imu_factor_mod, preint_mod=preint_mod,
         features=features, oc=oc, kn=kn, pr=pr, sf=sf, mapping=mapping,
         odometry=odometry, pipe_mod=pipe_mod, vm=vm,
-        SlamPipeline=SlamPipeline, ate_rmse=ate_rmse,
+        SlamPipeline=SlamPipeline, ate_rmse=ate_rmse, bp=bp,
+        RingImage=RingImage,
         dev=torch.device("cuda"))
     t_start = time.perf_counter()
     try:
@@ -1271,35 +1567,45 @@ def main():
     c.lio_world = synthetic.World.corridor(seed=0, size=12.0)
 
     # ---- 2. kernels against their plain versions
-    rows = {}
+    rows, batch_rows = {}, {}
     say("kernels against their plain versions:")
-    lidar_kernel_phase(c, rows)
-    lio_select_capture_phase(c, rows["select_fit"])
-    rows["select_fit"].v["err"] = max(rows["select_fit"].v["err"],
-                                      ring64_phase(c))
+    timed("kernels, lidar frame", lambda: lidar_kernel_phase(c, rows))
+    timed("kernels, LIO planar pairs",
+          lambda: lio_select_capture_phase(c, rows["select_fit"]))
+    err64 = timed("kernels, 64 rings", lambda: ring64_phase(c))
+    rows["select_fit"].v["err"] = max(rows["select_fit"].v["err"], err64)
+    timed("kernels, batched frame", lambda: batch_kernel_phase(c, batch_rows))
     # ---- 3. the knn path
-    knn_launches = knn_phase(c, rows)
+    knn_launches = timed("knn", lambda: knn_phase(c, rows))
     # ---- 4. the lidar-only main path
-    lidar_launches = lidar_path_phase(c)
+    lidar_launches = timed("lidar path", lambda: lidar_path_phase(c))
     # ---- 5. the LIO path
-    lio_accuracy_phase(c)
-    lio_launches = lio_speed_phase(c)
+    timed("LIO accuracy", lambda: lio_accuracy_phase(c))
+    lio_launches = timed("LIO speed", lambda: lio_speed_phase(c))
+    # ---- 6. the batched multi-sequence path
+    batch_launches = timed("batched path", lambda: batch_path_phase(c))
 
     launches = dict(lio_launches, knn=knn_launches)
     say(f"launches: LIO speed run {lio_launches}, lidar speed run "
-          f"{lidar_launches}, knn path {knn_launches}")
-    kern = []
-    for name in kernels.SOURCES:
-        o = rows[name].out()
-        kern.append(dict(
-            name=name, route="cuda", source=f"msf_loam_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=launches[name],
+          f"{lidar_launches}, knn path {knn_launches}, batched B={BATCH_B} "
+          f"speed run {batch_launches}")
+
+    def entry(name, label, o, n):
+        if n <= 0:
+            fail(f"{label} was never launched on its path")
+        return dict(
+            name=label, route="cuda",
+            source=f"msf_loam_tpu_torch/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=n,
             max_abs_err=o["max_abs_err"], ms=o["ms"], plain_ms=o["plain_ms"],
             bound_ms=o["bound_ms"], bound_by=o["bound_by"],
             library_ms=o["library_ms"], device_ms=o["device_ms"],
-            batch_ms=o["batch_ms"], device_from=o["device_from"]))
-        if launches[name] <= 0:
-            fail(f"{name} was never launched on its path")
+            batch_ms=o["batch_ms"], device_from=o["device_from"])
+    kern = [entry(name, name, rows[name].out(), launches[name])
+            for name in kernels.SOURCES]
+    kern += [entry(name, f"{name} (batched B={BATCH_B})",
+                   batch_rows[name].out(), batch_launches[name])
+             for name in ("pick_rounds", "odo_corr", "select_fit")]
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -35,9 +35,20 @@ class PointBatch(NamedTuple):
                            torch.full_like(self.xyz, fill))
 
     def take(self, idx: Tensor, mask: Tensor) -> "PointBatch":
-        """Rows ``idx`` with a new validity mask."""
-        return PointBatch(self.xyz[idx], self.rel_time[idx], self.ring[idx],
-                          mask)
+        """Rows ``idx`` with a new validity mask; a batch with a leading
+        lane axis takes ``idx`` (B, n) per lane."""
+        if idx.dim() == 1:
+            return PointBatch(self.xyz[idx], self.rel_time[idx],
+                              self.ring[idx], mask)
+        return PointBatch(
+            torch.gather(self.xyz, -2, idx[..., None].expand(
+                idx.shape + (3,))),
+            torch.gather(self.rel_time, -1, idx),
+            torch.gather(self.ring, -1, idx), mask)
+
+    def lane(self, b: int) -> "PointBatch":
+        """Lane ``b`` of a batch with a leading lane axis."""
+        return PointBatch(*(a[b] for a in self))
 
 
 class ScanFeatures(NamedTuple):
@@ -49,6 +60,19 @@ class ScanFeatures(NamedTuple):
     corner_less_sharp: PointBatch
     surf_flat: PointBatch
     surf_less_flat: PointBatch
+
+    def strip_full(self) -> "ScanFeatures":
+        """Drop the full-resolution cloud (a 0-point stub that keeps any
+        leading lane axis): scan-to-scan odometry reads only the previous
+        scan's less-sharp and less-flat clouds."""
+        return self._replace(full=PointBatch(*(
+            a[..., :0, :] if a.dim() == self.full.mask.dim() + 1
+            else a[..., :0] for a in self.full)))
+
+    def lane(self, b: int) -> "ScanFeatures":
+        """Lane ``b`` of features with a leading lane axis."""
+        return ScanFeatures(self.time[b] if self.time.dim() else self.time,
+                            *(pb.lane(b) for pb in self[1:]))
 
 
 class RingImage(NamedTuple):

@@ -158,10 +158,14 @@ class Pose(NamedTuple):
         return Pose(t=-quat_rotate(qinv, self.t), q=qinv)
 
     def apply(self, points: Tensor) -> Tensor:
-        """Transform points (N, 3) or (3,) by this pose."""
+        """Transform points (N, 3) or (3,) by this pose, or (B, N, 3) by B
+        poses (one per lane)."""
         if points.dim() >= 2 and self.q.dim() == 1:
             R = quat_to_matrix(self.q)
             return points @ R.T + self.t
+        if points.dim() == 3 and self.q.dim() == 2:
+            R = quat_to_matrix(self.q)
+            return points @ R.transpose(1, 2) + self.t[:, None, :]
         return quat_rotate(self.q, points) + self.t
 
     def retract(self, delta: Tensor) -> "Pose":
@@ -176,6 +180,8 @@ class Pose(NamedTuple):
 
 
 def select_pose(cond: Tensor, a: Pose, b: Pose) -> Pose:
-    """Elementwise ``a if cond else b`` for a 0-d boolean tensor, on the
-    device (no host synchronisation)."""
-    return Pose(torch.where(cond, a.t, b.t), torch.where(cond, a.q, b.q))
+    """Elementwise ``a if cond else b`` for a 0-d boolean tensor, or per
+    lane for (B,) conditions and poses, on the device (no host
+    synchronisation)."""
+    c = cond[..., None]
+    return Pose(torch.where(c, a.t, b.t), torch.where(c, a.q, b.q))

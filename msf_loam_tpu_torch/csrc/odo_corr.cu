@@ -36,6 +36,12 @@
 // barrier rank 0 merges the C partials in slice order and writes c. One
 // launch per call.
 //
+// Lanes: a batch of B independent (queries, cloud) problems of one shape
+// (the batched pipeline's lanes) runs in the same launch, lane b in
+// blockIdx.z with its own offsets into every input and output; a lane's
+// blocks never read another lane's data, so each lane's result is the
+// single-lane result.
+//
 // Every merge takes the lower index on a tie, and the kernel is compiled
 // with -fmad=false so d2 is rounded exactly as the plain PyTorch version
 // rounds it: indices, rings and d2 match it bit for bit.
@@ -90,6 +96,19 @@ odo_corr_kernel(const float* __restrict__ q, const float* __restrict__ ref,
   const int L = M / C;
   const int s0 = rank * L;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  {  // this block's lane of the batch
+    const size_t b = blockIdx.z;
+    q += b * N * 3;
+    ref += b * 4 * M;
+    a_d2 += b * N;
+    a_idx += b * N;
+    a_ring += b * N;
+    c_d2 += b * N;
+    c_idx += b * N;
+    cand_d2 += b * N * K;
+    cand_idx += b * N * K;
+    cand_ring += b * N * K;
+  }
   // this block has started: others may write its shared memory once every
   // block of the cluster has arrived here (the wait is after pass 1)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
@@ -262,22 +281,22 @@ int cluster_size(int K) {
 
 }  // namespace
 
-// q: (N, 3) f32; ref: (4, M) f32 planes [x | y | z | ring], 16-byte
+// q: (B, N, 3) f32; ref: (B, 4, M) f32 planes [x | y | z | ring], 16-byte
 // aligned, with masked and padded points already at the 1e9 / 1e6
-// sentinels; M a multiple of 128*K (of 128 when K = 0). Returns the CUDA
-// error of the launch (0 = ok).
-extern "C" int odo_corr_launch(const float* q, const float* ref, int N, int M,
-                               int K, float nearby, float* a_d2, int* a_idx,
-                               int* a_ring, float* c_d2, int* c_idx,
-                               float* cand_d2, int* cand_idx, int* cand_ring,
-                               void* stream) {
-  if (N <= 0) return 0;
+// sentinels; M a multiple of 128*K (of 128 when K = 0); outputs (B, N) and
+// (B, N, K). Returns the CUDA error of the launch (0 = ok).
+extern "C" int odo_corr_launch(const float* q, const float* ref, int B,
+                               int N, int M, int K, float nearby,
+                               float* a_d2, int* a_idx, int* a_ring,
+                               float* c_d2, int* c_idx, float* cand_d2,
+                               int* cand_idx, int* cand_ring, void* stream) {
+  if (N <= 0 || B <= 0) return 0;
   const int err = setup();
   if (err != 0) return err;
   const int C = cluster_size(K);
   const int tiles = (N + kTile - 1) / kTile;
   if (C == 0 || K < 0 || M <= 0 || M % (8 * C) != 0 || tiles > 65535 ||
-      (K > 0 && M % K != 0) || ((uintptr_t)ref & 15) != 0)
+      B > 65535 || (K > 0 && M % K != 0) || ((uintptr_t)ref & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
@@ -285,7 +304,7 @@ extern "C" int odo_corr_launch(const float* q, const float* ref, int N, int M,
   attr.val.clusterDim.x = C;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(C, tiles, 1);
+  cfg.gridDim = dim3(C, tiles, B);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)(M / C) * sizeof(float4);
   cfg.stream = (cudaStream_t)stream;
@@ -302,12 +321,12 @@ extern "C" int odo_corr_launch(const float* q, const float* ref, int N, int M,
 
 // Blocks per cluster, blocks in the grid and dynamic shared memory bytes of
 // one launch at these sizes (for reports).
-extern "C" int odo_corr_geometry(int N, int M, int K, int* cluster,
+extern "C" int odo_corr_geometry(int B, int N, int M, int K, int* cluster,
                                  int* blocks, int* smem) {
   const int C = cluster_size(K);
   if (C == 0) return (int)cudaErrorInvalidValue;
   *cluster = C;
-  *blocks = C * ((N + kTile - 1) / kTile);
+  *blocks = B * C * ((N + kTile - 1) / kTile);
   *smem = (int)((M / C) * sizeof(float4));
   return 0;
 }

@@ -1,8 +1,9 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 The JAX package's state — voxel hash maps, poses, point batches, scan
-features, ring images and the IMU estimator (preintegrations, states, the
-sample buffer) — is this system's "weights". These functions
+features, ring images, the batched pipeline's state and the IMU
+estimator (preintegrations, states, the sample buffer) — is this
+system's "weights". These functions
 build the port's tensors from any object exposing the JAX containers'
 field names with array-like values (for example a JAX NamedTuple after
 ``jax.tree.map(np.asarray, ...)``), and turn the port's containers back
@@ -22,6 +23,7 @@ from msf_loam_tpu_torch.core.se3 import Pose
 from msf_loam_tpu_torch.imu.buffer import ImuBuffer
 from msf_loam_tpu_torch.imu.imu_factor import ImuState
 from msf_loam_tpu_torch.imu.preintegration import Preintegration
+from msf_loam_tpu_torch.slam.batch_pipeline import BatchState
 from msf_loam_tpu_torch.slam.voxel_map import VoxelHashMap
 
 
@@ -130,3 +132,16 @@ def to_numpy(x: Any) -> Dict[str, Any]:
     if hasattr(x, "_fields"):
         return {f: to_numpy(getattr(x, f)) for f in x._fields}
     return x
+
+
+def batch_state_from_numpy(st: Any, device="cuda"):
+    """A port ``BatchState`` from one with the JAX ``BatchState``'s fields
+    (fused maps, lane-batched previous features and poses, frame count)."""
+    return BatchState(
+        corner_map=map_from_numpy(st.corner_map, device),
+        surf_map=map_from_numpy(st.surf_map, device),
+        prev_feats=scan_features_from_numpy(st.prev_feats, device),
+        pose_c2l=pose_from_numpy(st.pose_c2l, device),
+        pose_odom=pose_from_numpy(st.pose_odom, device),
+        pose_o2m=pose_from_numpy(st.pose_o2m, device),
+        frame_idx=int(np.asarray(st.frame_idx)))

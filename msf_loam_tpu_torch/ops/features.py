@@ -143,47 +143,41 @@ def run_pick_rounds(curv: Tensor, pickable: Tensor, sector: Tensor,
         n_flat=cfg.flat_per_sector)
 
 
-def _pad_or_trim(pb: PointBatch, capacity: int) -> PointBatch:
-    n = pb.xyz.shape[0]
-    if n == capacity:
-        return pb
-    if n > capacity:
-        # keep valid points first (stable partition by mask)
-        order = torch.sort((~pb.mask).to(torch.uint8), stable=True).indices
-        take = order[:capacity]
-        return pb.take(take, pb.mask[take])
-    pad = capacity - n
-    return PointBatch(
-        xyz=torch.nn.functional.pad(pb.xyz, (0, 0, 0, pad)),
-        rel_time=torch.nn.functional.pad(pb.rel_time, (0, pad)),
-        ring=torch.nn.functional.pad(pb.ring, (0, pad)),
-        mask=torch.nn.functional.pad(pb.mask, (0, pad)))
-
-
-def _gather_picks(ring_image: RingImage, picks: Tensor, n_keep: int,
-                  capacity: int) -> PointBatch:
-    """Gather pick rounds 0..n_keep-1 into a flat PointBatch."""
-    R = picks.shape[1]
-    sel = picks[:n_keep]                                   # (n_keep, R, S)
-    w_idx = sel.permute(1, 0, 2).reshape(R, -1).long()     # (R, n_keep*S)
+def _gather_picks(xyz: Tensor, rel: Tensor, picks: Tensor, n_keep: int,
+                  B: int) -> PointBatch:
+    """Gather pick rounds 0..n_keep-1 of (B*R, W) ring rows into B lanes of
+    R * n_keep * S points each (row, round, sector order; rings numbered
+    within the lane). The kernel returns at least n_keep rounds of each
+    kind (its corner rounds round the rest up to whole rounds of T)."""
+    BR, S = picks.shape[1], picks.shape[2]
+    R, n = BR // B, n_keep
+    sel = picks[:n]                                        # (n, B*R, S)
+    w_idx = sel.permute(1, 0, 2).reshape(BR, n * S).long()
     valid = w_idx >= 0
     w_safe = torch.clamp(w_idx, min=0)
-    xyz = torch.gather(ring_image.xyz, 1, w_safe[..., None].expand(-1, -1, 3))
-    rel = torch.gather(ring_image.rel_time, 1, w_safe)
-    ring = torch.arange(R, dtype=torch.int32,
-                        device=picks.device)[:, None].expand(w_idx.shape)
-    pb = PointBatch(xyz.reshape(-1, 3), rel.reshape(-1), ring.reshape(-1),
-                    valid.reshape(-1))
-    return _pad_or_trim(pb, capacity)
+    p_xyz = torch.gather(xyz, 1, w_safe[..., None].expand(-1, -1, 3))
+    p_rel = torch.gather(rel, 1, w_safe)
+    ring = torch.arange(R, dtype=torch.int32, device=picks.device) \
+        .repeat(B)[:, None].expand(w_idx.shape)
+    return PointBatch(p_xyz.reshape(B, R * n * S, 3),
+                      p_rel.reshape(B, R * n * S), ring.reshape(B, R * n * S),
+                      valid.reshape(B, R * n * S))
 
 
-def extract_features(ring_image: RingImage, scan_time: Tensor,
-                     cfg: FeatureConfig) -> ScanFeatures:
-    """RingImage -> five feature clouds (2 sharp / 20 less-sharp / 4 flat
-    per ring-sector; the less-flat cloud voxel-downsampled)."""
-    R, W, _ = ring_image.xyz.shape
+def extract_features_batched(imgs: RingImage, scan_time: Tensor,
+                             cfg: FeatureConfig) -> ScanFeatures:
+    """``extract_features`` over B lanes (RingImage leaves (B, R, W, ...))
+    in one set of launches. Every stage up to the less-flat filter works
+    along one ring row, so the lanes are flattened into B*R rows (one
+    pick_rounds launch); only the less-flat voxel compaction stays
+    lane-local (a sort per lane). Each lane's clouds equal
+    ``extract_features`` of that lane bit for bit. Returns ScanFeatures
+    whose clouds carry a leading (B,) axis; ``time`` is ``scan_time``."""
+    B, R, W, _ = imgs.xyz.shape
     S = cfg.num_sectors
-    xyz, mask = ring_image.xyz, ring_image.mask
+    xyz = imgs.xyz.reshape(B * R, W, 3)
+    rel = imgs.rel_time.reshape(B * R, W)
+    mask = imgs.mask.reshape(B * R, W)
 
     curv, eligible = compute_curvature(xyz, mask, cfg)
     n_valid = mask.sum(dim=1)
@@ -195,27 +189,32 @@ def extract_features(ring_image: RingImage, scan_time: Tensor,
     corner_picks, flat_picks, suppressed = run_pick_rounds(
         curv, pickable, sector, gap, gate, cfg)
 
-    sharp = _gather_picks(ring_image, corner_picks, cfg.sharp_per_sector,
-                          R * S * cfg.sharp_per_sector)
-    less_sharp = _gather_picks(ring_image, corner_picks,
-                               cfg.less_sharp_per_sector,
-                               R * S * cfg.less_sharp_per_sector)
-    flat = _gather_picks(ring_image, flat_picks, cfg.flat_per_sector,
-                         R * S * cfg.flat_per_sector)
+    sharp = _gather_picks(xyz, rel, corner_picks, cfg.sharp_per_sector, B)
+    less_sharp = _gather_picks(xyz, rel, corner_picks,
+                               cfg.less_sharp_per_sector, B)
+    flat = _gather_picks(xyz, rel, flat_picks, cfg.flat_per_sector, B)
 
     # less-flat: everything eligible that is not a corner pick / neighbour
-    less_flat_mask = eligible & ~suppressed
-    lf_xyz = xyz.reshape(-1, 3)
-    lf_rel = ring_image.rel_time.reshape(-1)
+    less_flat_mask = (eligible & ~suppressed).reshape(B, R * W)
     lf_ring = torch.arange(R, dtype=torch.int32, device=xyz.device)[:, None] \
-        .expand(R, W).reshape(-1)
-    lf_salt = lf_ring if cfg.less_flat_per_ring else None
+        .expand(R, W).reshape(1, R * W).expand(B, R * W)
+    full = PointBatch(imgs.xyz.reshape(B, R * W, 3),
+                      imgs.rel_time.reshape(B, R * W), lf_ring,
+                      imgs.mask.reshape(B, R * W))
     lf_idx, lf_valid = voxel_downsample_compact_idx(
-        lf_xyz, less_flat_mask.reshape(-1), cfg.less_flat_leaf,
-        cfg.max_less_flat, salt=lf_salt)
-    lf = PointBatch(lf_xyz[lf_idx], lf_rel[lf_idx], lf_ring[lf_idx], lf_valid)
-
-    full = PointBatch(lf_xyz, lf_rel, lf_ring, mask.reshape(-1))
+        full.xyz, less_flat_mask, cfg.less_flat_leaf, cfg.max_less_flat,
+        salt=lf_ring if cfg.less_flat_per_ring else None)
     return ScanFeatures(time=scan_time, full=full, corner_sharp=sharp,
                         corner_less_sharp=less_sharp, surf_flat=flat,
-                        surf_less_flat=lf)
+                        surf_less_flat=full.take(lf_idx, lf_valid))
+
+
+def extract_features(ring_image: RingImage, scan_time: Tensor,
+                     cfg: FeatureConfig) -> ScanFeatures:
+    """RingImage -> five feature clouds (2 sharp / 20 less-sharp / 4 flat
+    per ring-sector; the less-flat cloud voxel-downsampled): the batched
+    extraction on one lane."""
+    feats = extract_features_batched(RingImage(*(a[None] for a in ring_image)),
+                                     scan_time, cfg)
+    return feats._replace(**{f: getattr(feats, f).lane(0)
+                             for f in ScanFeatures._fields[1:]})

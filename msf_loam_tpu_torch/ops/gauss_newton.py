@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 import torch
 
 from msf_loam_tpu_torch.core.se3 import Pose
+from msf_loam_tpu_torch.ops import icp_residuals as icp
 from msf_loam_tpu_torch.ops.icp_residuals import ResidualBlocks
 
 Tensor = torch.Tensor
@@ -86,3 +87,25 @@ def gauss_newton(build_blocks: Callable[[Pose, Tensor],
         if state_dim > 6:
             vel = vel + dx[6:9]
     return GNState(pose=pose, velocity=vel, cost=cost, n_inliers=n_in)
+
+
+def solve_edge_plane(pose0: Pose, edges: Sequence[Tensor],
+                     planes: Sequence[Tensor], huber_delta: float,
+                     n_iters: int) -> GNState:
+    """The rigid point-to-line + point-to-plane Gauss-Newton of the scan
+    matchers, Huber-weighted; ``edges`` / ``planes`` are (points, centre,
+    direction or normal, valid). With a leading lane axis on ``pose0`` and
+    on every correspondence tensor each lane solves alone:
+    ``torch.func.vmap`` batches every operation over the lanes, so the
+    launches do not grow with their number."""
+    def solve(pose, e, p):
+        def build(q, v):
+            eb = icp.edge_residuals(q, *e)
+            pb = icp.plane_residuals(q, *p)
+            return [eb, pb], [huber_weights(eb, huber_delta),
+                              huber_weights(pb, huber_delta)]
+        return gauss_newton(build, pose, torch.zeros_like(pose.t), n_iters)
+
+    if pose0.t.dim() == 1:
+        return solve(pose0, edges, planes)
+    return torch.func.vmap(solve)(pose0, tuple(edges), tuple(planes))

@@ -79,35 +79,42 @@ def voxel_keys(xyz: Tensor, leaf, origin: float = 4096.0) -> Tensor:
 
 
 def _first_kept(keep: Tensor, capacity: int) -> Tensor:
-    """Ascending positions of the first ``capacity`` True entries, padded
-    with 2**30 (the ``top_k(-posval)`` of the JAX version, scatter form)."""
-    n = keep.shape[0]
-    rank = torch.cumsum(keep, 0) - 1
+    """Ascending positions of the first ``capacity`` True entries along the
+    last axis, padded with 2**30 (the ``top_k(-posval)`` of the JAX
+    version, scatter form)."""
+    n = keep.shape[-1]
+    rank = torch.cumsum(keep, -1) - 1
     dest = torch.where(keep & (rank < capacity), rank, capacity)
-    p = torch.full((capacity + 1,), 2 ** 30, dtype=torch.int64,
-                   device=keep.device)
-    p.scatter_(0, dest, torch.arange(n, device=keep.device))
-    return p[:capacity]
+    p = torch.full(keep.shape[:-1] + (capacity + 1,), 2 ** 30,
+                   dtype=torch.int64, device=keep.device)
+    p.scatter_(-1, dest, torch.arange(n, device=keep.device).expand_as(dest))
+    return p[..., :capacity]
+
+
+def _first_of_runs(sorted_keys: Tensor) -> Tensor:
+    """True where a sorted key differs from its predecessor (last axis)."""
+    first = torch.ones_like(sorted_keys, dtype=torch.bool)
+    first[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+    return first
 
 
 def voxel_downsample_compact_idx(xyz: Tensor, mask: Tensor, leaf,
                                  capacity: int,
                                  salt: Optional[Tensor] = None):
-    """Voxel dedup + front compaction in one sort: (idx (capacity,) int64,
-    valid (capacity,) bool) of one representative (lowest index) per
-    occupied voxel, in voxel-key order, padded with 0."""
-    n = xyz.shape[0]
+    """Voxel dedup + front compaction in one sort: (idx (..., capacity)
+    int64, valid (..., capacity) bool) of one representative (lowest index)
+    per occupied voxel, in voxel-key order, padded with 0. Leading axes of
+    ``xyz`` (..., n, 3) are independent lanes (each sorts alone)."""
+    n = xyz.shape[-2]
     capacity = min(capacity, n)
     key = salt_key(voxel_keys(xyz, leaf), salt).long()
     iota = torch.arange(n, device=xyz.device)
     key = torch.where(mask, key, iota + _I32_MIN)
-    ks, order = torch.sort(key, stable=True)
-    mask_s = mask[order]
-    first = torch.ones_like(mask_s)
-    first[1:] = ks[1:] != ks[:-1]
-    p = _first_kept(first & mask_s, capacity)
+    ks, order = torch.sort(key, dim=-1, stable=True)
+    p = _first_kept(_first_of_runs(ks) & torch.gather(mask, -1, order),
+                    capacity)
     valid = p < 2 ** 30
-    idx = order[torch.clamp(p, max=n - 1)]
+    idx = torch.gather(order, -1, torch.clamp(p, max=n - 1))
     return torch.where(valid, idx, 0), valid
 
 
@@ -117,10 +124,11 @@ def voxel_downsample_grouped_idx(xyz: Tensor, mask: Tensor, leaf,
     """``voxel_downsample_compact_idx`` whose output is also grouped by the
     map octant base cell ``floor((w - cell/2) / cell)`` of each point's
     world position, packed exactly (10 bits per axis, relative to the first
-    point's cell). Returns (idx, valid, gid (capacity,) ascending group ids
-    with ``group_budget - 1`` as the overflow/invalid group, rep_pos
-    (group_budget,) first output row of each group)."""
-    n = xyz.shape[0]
+    point's cell). Returns (idx, valid, gid (..., capacity) ascending group
+    ids with ``group_budget - 1`` as the overflow/invalid group, rep_pos
+    (..., group_budget) first output row of each group). Leading axes are
+    independent lanes."""
+    n = xyz.shape[-2]
     capacity = min(capacity, n)
     G = group_budget
     dev = xyz.device
@@ -128,33 +136,30 @@ def voxel_downsample_grouped_idx(xyz: Tensor, mask: Tensor, leaf,
     lkey = voxel_keys(xyz, leaf).long()
     iota = torch.arange(n, device=dev)
     base = torch.floor(div_scale(world_xyz - 0.5 * cell_size, cell_size))
-    ref = base[0]
+    ref = base[..., 0:1, :]
     ref = torch.where(torch.isfinite(ref), ref, torch.zeros_like(ref))
-    rel = torch.nan_to_num(torch.clamp(base - ref[None, :], -512.0, 511.0),
+    rel = torch.nan_to_num(torch.clamp(base - ref, -512.0, 511.0),
                            nan=0.0).long() + 512
-    ckey = (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
+    ckey = (rel[..., 0] << 20) | (rel[..., 1] << 10) | rel[..., 2]
     ckey = torch.where(mask, ckey, 2 ** 30 + iota)
     lkey = torch.where(mask, lkey, iota + _I32_MIN)
 
     packed = (ckey << 32) | (lkey - _I32_MIN)
-    ps, order = torch.sort(packed, stable=True)
-    cks = ps >> 32
-    mask_s = mask[order]
-    first = torch.ones_like(mask_s)
-    first[1:] = ps[1:] != ps[:-1]
-    p = _first_kept(first & mask_s, capacity)
+    ps, order = torch.sort(packed, dim=-1, stable=True)
+    p = _first_kept(_first_of_runs(ps) & torch.gather(mask, -1, order),
+                    capacity)
     valid = p < 2 ** 30
     pc = torch.clamp(p, max=n - 1)
-    idx = order[pc]
+    idx = torch.gather(order, -1, pc)
 
-    ck_out = cks[pc]
-    newg = torch.zeros_like(valid)
-    newg[1:] = ck_out[1:] != ck_out[:-1]
-    gid = torch.cumsum(newg, 0)
+    ck_out = torch.gather(ps >> 32, -1, pc)
+    gid = torch.cumsum(_first_of_runs(ck_out), -1) - 1
     gid = torch.where(valid, torch.clamp(gid, max=G - 1), G - 1)
     opos = torch.arange(capacity, device=dev)
-    rep_pos = torch.full((G,), capacity, dtype=torch.int64, device=dev)
-    rep_pos = rep_pos.scatter_reduce(0, gid, torch.where(valid, opos, capacity),
+    rep_pos = torch.full(valid.shape[:-1] + (G,), capacity,
+                         dtype=torch.int64, device=dev)
+    rep_pos = rep_pos.scatter_reduce(-1, gid, torch.where(valid, opos,
+                                                          capacity),
                                      "amin", include_self=True)
     rep_pos = torch.clamp(rep_pos, max=capacity - 1)
     return torch.where(valid, idx, 0), valid, gid, rep_pos

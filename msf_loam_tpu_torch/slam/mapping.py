@@ -51,44 +51,55 @@ def _sq_f32(x: float) -> float:
 
 
 class _CandidateCache:
-    """Per-frame octant gathers for both maps; each re-association round
-    runs only the fused selection + fit kernel, one launch for both."""
+    """Per-frame octant candidates of both maps; each re-association round
+    runs only the fused selection + fit kernel, one launch for both. The
+    queries may carry a leading lane axis (the batched pipeline's B*Q
+    candidate rows, lane-major): the launch then covers every lane."""
 
-    def __init__(self, corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
-                 cw0: Tensor, sw0: Tensor,
-                 corner_groups: Optional[vm.QueryGroups],
-                 surf_groups: Optional[vm.QueryGroups]):
+    def __init__(self, candp_c: Tensor, candp_s: Tensor, cell_c: float,
+                 cell_s: float):
+        self.candp_c, self.candp_s = candp_c, candp_s
+        self.cell_c, self.cell_s = cell_c, cell_s
+
+    @classmethod
+    def gather(cls, corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
+               cw0: Tensor, sw0: Tensor,
+               corner_groups: Optional[vm.QueryGroups],
+               surf_groups: Optional[vm.QueryGroups]) -> "_CandidateCache":
         if corner_groups is not None and surf_groups is not None:
-            self.candp_c = vm.gather_candidates_rows_grouped(
+            candp_c = vm.gather_candidates_rows_grouped(
                 corner_map, cw0, corner_groups.gid, corner_groups.rep_pos)
-            self.candp_s = vm.gather_candidates_rows_grouped(
+            candp_s = vm.gather_candidates_rows_grouped(
                 surf_map, sw0, surf_groups.gid, surf_groups.rep_pos)
         else:
-            self.candp_c = vm.gather_candidates_planar(corner_map, cw0)
-            self.candp_s = vm.gather_candidates_planar(surf_map, sw0)
-        self.cell_c = corner_map.cell_size
-        self.cell_s = surf_map.cell_size
+            candp_c = vm.gather_candidates_planar(corner_map, cw0)
+            candp_s = vm.gather_candidates_planar(surf_map, sw0)
+        return cls(candp_c, candp_s, corner_map.cell_size, surf_map.cell_size)
 
     def associate(self, corner: PointBatch, surf: PointBatch, cw: Tensor,
                   sw: Tensor, cfg: MappingConfig) -> MapCorrespondences:
         cc = np.float32(self.cell_c)
         cs = np.float32(self.cell_s)
         fc, fs = select_fit_pair(
-            self.candp_c, cw.contiguous(), _sq_f32(cc * np.float32(0.5)),
+            self.candp_c, cw.reshape(-1, 3).contiguous(),
+            _sq_f32(cc * np.float32(0.5)),
             _sq_f32(cc), dict(k=cfg.knn, mode="line", min_count=cfg.knn,
                               eig_ratio=cfg.line_eig_ratio),
-            self.candp_s, sw.contiguous(), _sq_f32(cs * np.float32(0.5)),
+            self.candp_s, sw.reshape(-1, 3).contiguous(),
+            _sq_f32(cs * np.float32(0.5)),
             _sq_f32(cs), dict(k=cfg.knn,
                               mode="plane2" if cfg.plane_fallback else "plane",
                               min_count=cfg.knn, min_wide=cfg.knn,
                               tol=cfg.plane_fit_tol))
-        edge_valid = ((fc.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
-                      & corner.mask & fc.valid)
-        plane_valid = ((fs.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
-                       & surf.mask & fs.valid)
-        return MapCorrespondences(corner.xyz, fc.center, fc.normal,
-                                  edge_valid, surf.xyz, fs.center, fs.normal,
-                                  plane_valid)
+        lc, ls = corner.mask.shape, surf.mask.shape
+        edge_valid = ((fc.d2[:, cfg.knn - 1].view(lc) < cfg.knn_dist_sq_max)
+                      & corner.mask & fc.valid.view(lc))
+        plane_valid = ((fs.d2[:, cfg.knn - 1].view(ls) < cfg.knn_dist_sq_max)
+                       & surf.mask & fs.valid.view(ls))
+        return MapCorrespondences(corner.xyz, fc.center.view(cw.shape),
+                                  fc.normal.view(cw.shape), edge_valid,
+                                  surf.xyz, fs.center.view(sw.shape),
+                                  fs.normal.view(sw.shape), plane_valid)
 
 
 class MappingResult(NamedTuple):
@@ -121,9 +132,10 @@ def match_scan2map_core(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
     grouped gather, without them from the one-level planar gather."""
     pose = pose0
     map_ok = _map_ok(corner_map, surf_map, cfg)
-    cache = _CandidateCache(corner_map, surf_map, pose.apply(scan_corner.xyz),
-                            pose.apply(scan_surf.xyz), corner_groups,
-                            surf_groups)
+    cache = _CandidateCache.gather(corner_map, surf_map,
+                                   pose.apply(scan_corner.xyz),
+                                   pose.apply(scan_surf.xyz), corner_groups,
+                                   surf_groups)
     zero_v = torch.zeros_like(pose0.t)
     n_edge = n_plane = cost = None
     for _ in range(cfg.outer_rounds):
@@ -131,16 +143,8 @@ def match_scan2map_core(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
                                pose.apply(scan_corner.xyz),
                                pose.apply(scan_surf.xyz), cfg)
         n_edge, n_plane = _counts(corr)
-
-        def build(p, v, corr=corr):
-            eb = icp.edge_residuals(p, corr.edge_points, corr.edge_c,
-                                    corr.edge_n, corr.edge_valid)
-            pb = icp.plane_residuals(p, corr.plane_points, corr.plane_c,
-                                     corr.plane_n, corr.plane_valid)
-            return [eb, pb], [gn.huber_weights(eb, cfg.huber_delta),
-                              gn.huber_weights(pb, cfg.huber_delta)]
-
-        out = gn.gauss_newton(build, pose, zero_v, n_iters=cfg.gn_iterations)
+        out = gn.solve_edge_plane(pose, corr[:4], corr[4:], cfg.huber_delta,
+                                  cfg.gn_iterations)
         ok_round = map_ok & ((n_edge + n_plane) >= 10)
         pose = select_pose(ok_round, out.pose, pose)
         cost = out.cost
@@ -160,7 +164,7 @@ def _match_deskew(corner_map, surf_map, scan_corner: PointBatch,
     columns are zero and the velocity stays as given."""
     pose, vel = pose0, velocity0
     map_ok = _map_ok(corner_map, surf_map, cfg)
-    cache = _CandidateCache(
+    cache = _CandidateCache.gather(
         corner_map, surf_map,
         icp.deskewed_world(pose, vel, scan_corner.xyz, corner_dk),
         icp.deskewed_world(pose, vel, scan_surf.xyz, surf_dk),

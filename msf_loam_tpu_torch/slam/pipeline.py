@@ -50,7 +50,7 @@ def downsample_features(pb: PointBatch, leaf: float,
     (never above the input capacity); rows come out in voxel-key order.
     The leaf divides as a tensor, as the reference's separately compiled
     downsample divides by its traced leaf."""
-    capacity = min(capacity, pb.xyz.shape[0])
+    capacity = min(capacity, pb.xyz.shape[-2])
     leaf_t = torch.full((), leaf, dtype=torch.float32, device=pb.xyz.device)
     idx, valid = voxel_downsample_compact_idx(pb.xyz, pb.mask, leaf_t,
                                               capacity)
@@ -63,8 +63,10 @@ def downsample_features_grouped(pb: PointBatch, leaf: float, capacity: int,
     """Voxel-thin a feature cloud, compact it to a fixed query budget (never
     above the input capacity) and group it by the map octant base cell of
     ``key_world`` (each input point's world position at the matcher's
-    query transform). Returns (PointBatch, QueryGroups)."""
-    capacity = min(capacity, pb.xyz.shape[0])
+    query transform). Returns (PointBatch, QueryGroups). A leading lane
+    axis on the cloud and the keys downsamples B lanes at once, each
+    sorted alone."""
+    capacity = min(capacity, pb.xyz.shape[-2])
     idx, valid, gid, rep_pos = voxel_downsample_grouped_idx(
         pb.xyz, pb.mask, leaf, capacity, key_world, cell_size, group_budget)
     return pb.take(idx, valid), vm.QueryGroups(gid=gid, rep_pos=rep_pos)

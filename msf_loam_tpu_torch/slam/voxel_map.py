@@ -16,12 +16,12 @@ map once).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from msf_loam_tpu_torch.ops.voxel import (as_i32, div_scale, hash3_u32,
-                                          sat_i32, sat_u32)
+                                          salt_key, sat_i32, sat_u32)
 
 Tensor = torch.Tensor
 
@@ -84,11 +84,14 @@ def _leaf_key_dyn(xyz: Tensor, leaf: float, origin: float = 8192.0) -> Tensor:
     return as_i32(hash3_u32(sat_u32(ijk)))
 
 
-def _dedup_batch(xyz: Tensor, mask: Tensor, leaf: float) -> Tensor:
-    """One representative (lowest index) per leaf voxel in the batch."""
+def _dedup_batch(xyz: Tensor, mask: Tensor, leaf: float,
+                 salt: Optional[Tensor] = None) -> Tensor:
+    """One representative (lowest index) per (salted) leaf voxel in the
+    batch."""
     n = xyz.shape[0]
     iota = torch.arange(n, device=xyz.device)
-    key = torch.where(mask, _leaf_key_dyn(xyz, leaf).long(), iota - 2 ** 31)
+    key = salt_key(_leaf_key_dyn(xyz, leaf), salt).long()
+    key = torch.where(mask, key, iota - 2 ** 31)
     ks, order = torch.sort(key, stable=True)
     first = torch.ones_like(mask)
     first[1:] = ks[1:] != ks[:-1]
@@ -100,22 +103,33 @@ def _dedup_batch(xyz: Tensor, mask: Tensor, leaf: float) -> Tensor:
 def insert(vmap: VoxelHashMap, xyz: Tensor, mask: Tensor) -> VoxelHashMap:
     """Insert world-frame points, one representative per leaf voxel: the
     first observation of a leaf voxel is kept, full slabs drop overflow."""
-    H = vmap.table_size
-    cells = sat_i32(torch.floor(div_scale(xyz, _f32(vmap.cell_size, xyz))))
-    return insert_at_slots(vmap, xyz, mask, _hash_cells(cells, H))
+    return insert_at_slots(vmap, xyz, mask,
+                           _hash_cells(cells_of(vmap, xyz), vmap.table_size))
+
+
+def cells_of(vmap: VoxelHashMap, xyz: Tensor) -> Tensor:
+    """Map cell coordinates of points: floor(xyz / cell_size), the cell
+    size dividing as a tensor (the map's leaf in the reference)."""
+    return sat_i32(torch.floor(div_scale(xyz, _f32(vmap.cell_size, xyz))))
 
 
 def insert_at_slots(vmap: VoxelHashMap, xyz: Tensor, mask: Tensor,
-                    slot: Tensor) -> VoxelHashMap:
+                    slot: Tensor, leaf_salt: Optional[Tensor] = None
+                    ) -> VoxelHashMap:
     """Insert with caller-provided slot ids. Rows that are not written
     (duplicates, masked, slab overflow) go to one scratch row appended past
-    the flattened table and cut off again."""
+    the flattened table and cut off again.
+
+    ``leaf_salt`` (per-point int32) separates the leaf-voxel namespaces of
+    logically distinct maps sharing one table (the batched pipeline salts
+    by lane), so one lane's point never suppresses another lane's insert
+    in the same world voxel."""
     H, P = vmap.table_size, vmap.slab_capacity
     n = xyz.shape[0]
     dev = xyz.device
 
-    rep = _dedup_batch(xyz, mask, vmap.leaf)
-    lkey = _leaf_key_dyn(xyz, vmap.leaf)
+    rep = _dedup_batch(xyz, mask, vmap.leaf, salt=leaf_salt)
+    lkey = salt_key(_leaf_key_dyn(xyz, vmap.leaf), leaf_salt)
     slot = torch.clamp(slot.long(), 0, H - 1)
     slot = torch.where(mask, slot, H - 1)
 
@@ -156,11 +170,14 @@ def evict_far(vmap: VoxelHashMap, center: Tensor,
               radius: float = 100.0) -> VoxelHashMap:
     """Drop stored points farther than ``radius`` from ``center`` (per
     point, not per slot) and re-compact every slab, kept points first in
-    their stored order."""
+    their stored order. ``center`` is one (3,) anchor or (H, 3) per-slot
+    anchors (the batched pipeline's fused table evicts each lane's slots
+    around that lane's pose)."""
     P = vmap.slab_capacity
     dev = vmap.points.device
     occup = torch.arange(P, device=dev)[None, :] < vmap.count[:, None]
-    d = vmap.points - center[None, None, :]
+    d = vmap.points - (center[None, None, :] if center.dim() == 1
+                       else center[:, None, :])
     d2 = (d * d).sum(dim=-1)
     keep = occup & (d2 <= radius * radius)
     order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
