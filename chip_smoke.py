@@ -6,7 +6,7 @@ NVIDIA GPU.
 
 Phases (any failure raises and exits non-zero before the result line):
 
-1. build the four hand-written CUDA kernels from ``msf_loam_tpu_torch/csrc``
+1. build the five hand-written CUDA kernels from ``msf_loam_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel);
 2. kernels against their plain PyTorch versions on the card:
    * pick_rounds, odo_corr, select_fit on every call of one real frame of
@@ -89,6 +89,32 @@ Phases (any failure raises and exits non-zero before the result line):
    poses across lanes, and a profile of 3 frames each (all launches per
    frame at B=8 at most 1.1x those at B=1).
 
+7. pose graph and loop closure (``slam.posegraph``, ``slam.loop_closure``,
+   ``slam.scan_context``) with the block-Thomas kernel ``block_tridiag``:
+   (a) the kernel bit-equal to its plain version on seeded SPD systems at
+   N = 20 and 64 with m = 1 and 49 right-hand sides, and on the first
+   Gauss-Newton system with loops of (c) (N = 8192, m = 49: one call of the
+   plain version, timed); event, device-only and batch times at N = 8192,
+   m = 1 and 49, launch geometry, the bound, and the dense
+   torch.linalg.solve of the assembled 6N x 6N system as the library
+   yardstick (median of 3 at N = 1024, one call at N = 8192);
+   (b) apps/run_slam.py's shutdown fusion on the port at full width (its
+   --selftest drive: default config, 16 rings x 1800 points, keyframes
+   every loop_keyframe_stride frames): the 30-frame out-and-back drive
+   with proximity detection + scan matcher (>= 1 loop edge, ATE < 0.08 m,
+   odo_corr, select_fit and block_tridiag launched by the loop-closure
+   step), scan context + scan matcher and proximity + submap matcher
+   (ATE < 0.08 m), --sim_gps --posegraph (ATE < 0.1 m), and the 25-frame
+   straight drive (0 edges, ATE < 0.08 m); one block_tridiag launch per
+   Gauss-Newton iteration on each;
+   (c) a graph at KITTI-00 size (4541 poses padded to 8192: a square
+   driven twice with a 1e-4 rad yaw bias a pose, GPS every 10th pose with
+   U(-5, 5) cm noise, 8 loop factors from ground truth): optimize and
+   optimize_with_loops, 10 iterations each (finite poses, falling cost),
+   their wall times and errors, host-clock stages and a profile;
+   (d) (c)'s problem at N = 64 with ``device="cpu"`` against the card
+   (poses within 1e-3).
+
 Prints, before the last line, a ``{"kernels": [...]}`` JSON line (the
 batched frame's call sites as rows of their own) and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -115,16 +141,21 @@ KNN_Q, KNN_M, KNN_KS = 4096, 65536, (8, 5)   # scripts/bench_knn.py
 LIO_FRAMES, LIO_STAGE_FRAMES, LIO_PROFILE_FRAMES = 20, 5, 3
 LIDAR_FRAMES = 20
 BATCH_B, BATCH_FRAMES, BATCH_PROFILE_FRAMES = 8, 30, 3
+# KITTI-00 size: 4541 poses (padded to the 8192 bucket), 8 loop factors
+PG_KITTI_N, PG_LOOPS, PG_REPS = 4541, 8, 10
 
 REPLACES = {
     "pick_rounds": "msf_loam_tpu/ops/pick_rounds.py:138",
     "odo_corr": "msf_loam_tpu/ops/odo_corr.py:152",
     "select_fit": "msf_loam_tpu/ops/select_fit.py:276",
     "knn": "msf_loam_tpu/ops/pallas_knn.py:102",
+    "block_tridiag": "msf_loam_tpu/slam/posegraph.py:475 solve_block_tridiag "
+                     "(lax.scan)",
 }
 DEVICE_KERNEL = {"pick_rounds": "pick_rounds_kernel",
                  "odo_corr": "odo_corr_kernel",
-                 "select_fit": "select_fit_kernel", "knn": "knn_"}
+                 "select_fit": "select_fit_kernel", "knn": "knn_",
+                 "block_tridiag": "block_tridiag_kernel"}
 
 
 CARD = "nvidia-smi unavailable"   # name, power limit; set by main()
@@ -1019,7 +1050,7 @@ def lidar_path_phase(c):
     peak = torch.cuda.max_memory_allocated()
     steady = (n_frames - warm) / (stamps[-1] - stamps[warm - 1])
     want = {"pick_rounds": n_frames + 1, "odo_corr": 4 * n_frames,
-            "select_fit": 4 * n_frames, "knn": 0}
+            "select_fit": 4 * n_frames, "knn": 0, "block_tridiag": 0}
     say(f"lidar speed: {steady:.2f} scans/s steady state (frames {warm}-"
           f"{n_frames - 1}), first frame {stamps[0] - t_run:.3f} s;"
           f" peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
@@ -1174,7 +1205,8 @@ def lio_speed_phase(c):
     if init_at is None:
         fail("LIO speed run never initialised")
     first = init_at + 1                       # first post-init (fused) frame
-    want = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0}
+    want = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0,
+            "block_tridiag": 0}
     bad = [i for i in range(first, n) if per_frame[i] != want]
     if bad:
         fail(f"LIO post-init frames {bad} launched {per_frame[bad[0]]}, "
@@ -1395,7 +1427,7 @@ def batch_speed(c, B, bench_imgs):
     peak = torch.cuda.max_memory_allocated()
     # init_batch_state extracts the empty previous scan: one pick_rounds
     want = {"pick_rounds": T + 1, "odo_corr": 4 * T, "select_fit": 4 * T,
-            "knn": 0}
+            "knn": 0, "block_tridiag": 0}
     if launches != want:
         fail(f"batched B={B}: launches {launches}, expected {want} (1 "
              f"pick_rounds + 4 odo_corr + 4 select_fit a frame, one "
@@ -1479,6 +1511,447 @@ def batch_path_phase(c):
     return runs[BATCH_B]["launches"]
 
 
+# --------------------------------------------- 7. pose graph, loop closure
+def pg_problem(c, n, n_loops, device, bias=1e-4, seed=0):
+    """A square driven twice (lap 2 retraces lap 1) with a compounding yaw
+    bias of ``bias`` rad a pose in the odometry (tests/test_loop_closure.py
+    builds its loop problem so), GPS every 10th pose with U(-5, 5) cm noise,
+    ``n_loops`` loop factors tying lap-1 poses to their lap-2 twins from
+    ground truth; padded to the next size class. Returns (gt_t (n, 3)
+    numpy, poses0, data, loops) on ``device``."""
+    torch, Pose, pg = c.torch, c.Pose, c.pg
+    lap = n // 2
+    side = max(1, lap // 4)
+    head = np.array([((i % lap) // side % 4) * (np.pi / 2) for i in range(n)])
+    gt_t = np.concatenate([np.zeros((1, 3)), np.cumsum(np.stack(
+        [np.cos(head[1:]), np.sin(head[1:]), 0 * head[1:]], 1), 0)])
+
+    def yaw_q(y):
+        return np.stack([np.cos(y / 2), 0 * y, 0 * y, np.sin(y / 2)], -1)
+    dyaw = np.diff(head) + bias
+    step = np.diff(gt_t, axis=0)
+    cy, sy = np.cos(head[:-1]), np.sin(head[:-1])
+    rel_t = np.stack([cy * step[:, 0] + sy * step[:, 1],
+                      -sy * step[:, 0] + cy * step[:, 1], 0 * cy], 1)
+    yaws = np.concatenate([[0.0], np.cumsum(dyaw)])
+    t0 = [np.zeros(3)]
+    for i in range(n - 1):
+        cw, sw = np.cos(yaws[i]), np.sin(yaws[i])
+        t0.append(t0[-1] + np.array([cw * rel_t[i, 0] - sw * rel_t[i, 1],
+                                     sw * rel_t[i, 0] + cw * rel_t[i, 1], 0]))
+    rng = np.random.default_rng(seed)
+    gi = np.arange(0, n, 10)
+    gxyz = gt_t[gi] + rng.uniform(-0.05, 0.05, (len(gi), 3))
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=device)
+    poses0 = Pose(T(np.stack(t0)), T(yaw_q(yaws)))
+    data = pg.build_graph_data(T(np.arange(n)), poses0, T(gi), T(gxyz),
+                               torch.ones(len(gi), dtype=torch.bool,
+                                          device=device))
+    data = data._replace(rel_meas=Pose(T(rel_t), T(yaw_q(dyaw))))
+    ri = np.linspace(1, lap - 2, n_loops).astype(np.int64)
+    rj = ri + lap
+    gt = Pose(T(gt_t), T(yaw_q(head)))
+    meas = Pose(gt.t[ri], gt.q[ri]).inverse().compose(
+        Pose(gt.t[rj], gt.q[rj]))
+    loops = pg.LoopFactors.pad(ri, rj, meas, to_l=n_loops)
+    poses0, data = pg.pad_graph(poses0, data, pg.next_bucket(n))
+    return gt_t, poses0, data, loops
+
+
+def first_gn_system(c, poses, data, loops, cfg):
+    """D, U and [rhs | W] of the first Gauss-Newton step of
+    ``optimize_with_loops``, as it hands them to the kernel."""
+    pg = c.pg
+    _, rel_lin, _, gps_lin = pg._make_factor_fns(cfg)
+    D, U, b = pg._assemble_chain(poses, data, cfg, rel_lin, gps_lin)
+    b, W = pg._assemble_loops(poses, loops, cfg, b, rel_lin)
+    return D, U, c.torch.cat([-b[..., None], W], -1)
+
+
+def tridiag_work(N, m):
+    """(bytes, float operations) of one block-Thomas solve: D, U and B read
+    once and X written once; per step the 6x6 factorisation, the six
+    columns of Dt⁻¹U, the 6 x (6+m) update and the m backward columns."""
+    nbytes = 4 * (36 * N + 36 * (N - 1) + 2 * 6 * m * N)
+    factor = sum(2 * (5 - k) * (6 - k) for k in range(6))
+    solve_col = 2 * 15 + 6 + 2 * 15
+    ops = N * (factor + 6 * solve_col + 12 * 6 * (6 + m)
+               + m * (12 * 6 + solve_col))
+    return nbytes, ops
+
+
+def dense_from_blocks(torch, D, U):
+    """The assembled 6N x 6N matrix tridiag(Uᵀ, D, U) on the card."""
+    N = D.shape[0]
+    H = torch.zeros((N, 6, N, 6), dtype=D.dtype, device=D.device)
+    i = torch.arange(N, device=D.device)
+    H[i, :, i, :] = D
+    H[i[:-1], :, i[1:], :] = U
+    H[i[1:], :, i[:-1], :] = U.transpose(1, 2)
+    return H.reshape(6 * N, 6 * N)
+
+
+def seeded_tridiag(torch, rng, N, m, dev):
+    D = rng.normal(size=(N, 6, 6))
+    D = np.einsum("nij,nkj->nik", D, D) + 6 * np.eye(6)
+    U = rng.normal(size=(N - 1, 6, 6)) * 0.3
+    B = rng.normal(size=(N, 6, m))
+    T = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return T(D), T(U), T(B)
+
+
+def check_tridiag(torch, bt, D, U, B, tag):
+    """The plain version's solution, after holding the kernel to it."""
+    want = bt.block_tridiag_plain(D, U, B)
+    torch.cuda.synchronize()
+    got = bt.block_tridiag(D, U, B)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"block_tridiag {tag}: non-finite solution")
+    if not torch.equal(got, want):
+        fail(f"block_tridiag {tag}: differs from its plain version by "
+             f"{float((got - want).abs().max())}")
+    return want
+
+
+def posegraph_kernel_phase(c, row, system):
+    """block_tridiag against its plain version (bit-equal) on seeded SPD
+    systems and on the KITTI-size graph's first GN system with loops, its
+    times, launch geometry, bound and the dense-solve yardstick."""
+    torch, bt = c.torch, c.bt
+    rng = np.random.default_rng(0)
+    for N in (20, 64):
+        for m in (1, 49):
+            D, U, B = seeded_tridiag(torch, rng, N, m, c.dev)
+            X = check_tridiag(torch, bt, D, U, B, f"N={N} m={m}")
+            H = dense_from_blocks(torch, D.double(), U.double())
+            res = (H @ X.double().reshape(6 * N, m)
+                   - B.double().reshape(6 * N, m)).abs().max()
+            say(f"block_tridiag N={N} m={m}: bit-equal to plain; max "
+                f"|H x - b| {float(res):.2e} (float64 residual)")
+    D, U, B = system
+    N, m = B.shape[0], B.shape[2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check_tridiag(torch, bt, D, U, B, f"KITTI-size first GN system N={N} "
+                  f"m={m}")
+    plain_ms = (time.perf_counter() - t0) * 1e3    # one plain call
+    say(f"block_tridiag KITTI-size first GN system with loops (N={N}, "
+        f"m={m}): bit-equal to its plain version")
+    for mm in (1, m):
+        Bm = B[..., :mm].contiguous()
+        fn = lambda: bt.block_tridiag(D, U, Bm)
+        t = dict(ms=cuda_ms(torch, fn, reps=PG_REPS),
+                 batch_ms=batch_ms(torch, fn, reps=PG_REPS),
+                 plain_ms=plain_ms)
+        dev_ms = device_only_ms(torch, fn, DEVICE_KERNEL["block_tridiag"],
+                                reps=PG_REPS)
+        t["device_ms"] = dev_ms if dev_ms is not None else t["batch_ms"]
+        t["device_from"] = "profiler" if dev_ms is not None else "batch"
+        nbytes, nops = tridiag_work(N, mm)
+        b, by = bound_ms(nbytes, nops)
+        say(f"block_tridiag N={N} m={mm}: kernel {t['ms']:.3f} ms (events), "
+            f"device {t['device_ms']:.3f} ms ({t['device_from']}; batch "
+            f"{t['batch_ms']:.3f}), {t['device_ms'] / N / 2 * 1e3:.2f} us a "
+            f"block step; bound {b * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} "
+            f"MB, {nops / 1e6:.1f} Mflop; the 2N dependent 6x6 steps bound "
+            f"it in practice); launch {bt.launch_geometry(mm)}")
+        if mm == m:
+            row.add(t, nbytes, nops)
+    say(f"block_tridiag plain version, one call at N={N} m={m}: "
+        f"{plain_ms:.1f} ms")
+    lib = {}
+    for n_lib, reps in ((min(1024, N), 3), (N, 1)):
+        Dl, Ul, Bl = D[:n_lib], U[:n_lib - 1], B[:n_lib]
+        H = dense_from_blocks(torch, Dl, Ul)
+        rhs = Bl.reshape(6 * n_lib, m)
+        ts = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            torch.linalg.solve(H, rhs)
+            e.record()
+            torch.cuda.synchronize()
+            ts.append(s.elapsed_time(e))
+        lib[n_lib] = float(np.median(ts))
+        say(f"library yardstick: dense torch.linalg.solve of the assembled "
+            f"{6 * n_lib} x {6 * n_lib} system with {m} right-hand sides "
+            f"({H.numel() * 4 / 1e9:.2f} GB): {lib[n_lib]:.1f} ms (median "
+            f"of {reps})")
+        del H
+        torch.cuda.empty_cache()
+    row.library_ms = lib[N]
+
+
+def slam_drive(c, path, n):
+    """run_slam's selftest drive through the port (default config, 16 rings
+    x 1800 points, World.corridor(seed=0, size=12.0)): ``loop`` goes out and
+    back, ``straight`` drifts gently. Returns (trajectory, keyframes,
+    ground truth, GPS times and fixes as run_slam's --sim_gps draws them)."""
+    cfg = c.sim_cfg
+    world = c.synthetic.World.corridor(seed=0, size=12.0)
+    pipe = c.SlamPipeline(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    keyframes, gt, gps_t, gps_xyz = {}, [], [], []
+    pg_cfg = cfg.posegraph
+    for i in range(n):
+        if path == "loop":
+            fwd = i if i < n // 2 else (n - 1 - i)
+            t, yaw = np.array([0.25 * fwd, 0.0, 0.0]), 0.0
+        else:
+            t, yaw = np.array([0.25 * i, 0.1 * np.sin(0.2 * i), 0.0]), 0.02 * i
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+        xyz, ring = c.synthetic.simulate_scan(world, t, R, n_rings=16,
+                                              pts_per_ring=1800, noise=0.004,
+                                              seed=i)
+        img = c.preprocess.preprocess_scan(xyz, ring, cfg.features, 16,
+                                           device=c.dev)
+        pipe.process_ring_image(img, 0.1 * i)
+        idx = len(pipe.results) - 1
+        if idx % pg_cfg.loop_keyframe_stride == 0:
+            keyframes[idx] = pipe.prev_scan
+        gt.append(t)
+        if i % pg_cfg.sim_gps_period == 0:
+            gps_t.append(0.1 * i)
+            gps_xyz.append(t + rng.uniform(-pg_cfg.sim_gps_noise,
+                                           pg_cfg.sim_gps_noise, 3))
+    return pipe.trajectory(), keyframes, np.asarray(gt), gps_t, gps_xyz
+
+
+def close_loops(c, poses, data, traj, keyframes, detector, edge_matcher):
+    """apps/run_slam.py:_close_loops on the port: detect revisits among the
+    keyframes, scan-match each candidate into a loop edge, solve the pose
+    graph with the edges folded in. Returns (result, edges, candidates)."""
+    torch, Pose, cfg = c.torch, c.Pose, c.sim_cfg
+    pgc = cfg.posegraph
+    kf_idx = sorted(keyframes)
+    stride = max(1, pgc.loop_keyframe_stride)
+    gap_kf = max(1, pgc.loop_min_index_gap // stride)
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=c.dev)
+    guesses = {}
+    if detector == "scan_context":
+        descs = torch.stack([c.sc.compute_descriptor(
+            keyframes[k].full.xyz, keyframes[k].full.mask) for k in kf_idx])
+        triples = c.sc.detect_loops_scan_context(
+            descs.cpu().numpy(), min_index_gap=gap_kf,
+            max_dist=pgc.loop_sc_max_dist, max_loops=pgc.loop_max_count,
+            suppress_gap=max(1, gap_kf // 2),
+            prescreen=0 if len(kf_idx) < 100 else 25, device=c.dev)
+        pairs = [(a, b) for a, b, _ in triples]
+        for a, b, yaw in triples:
+            guesses[(a, b)] = Pose(T(np.zeros(3)), c.se3.quat_exp(
+                T([0.0, 0.0, yaw])))
+    else:
+        pairs = c.lc.detect_loops(
+            traj[kf_idx, 1:4], max_dist=pgc.loop_max_dist,
+            min_index_gap=gap_kf, max_loops=pgc.loop_max_count,
+            suppress_gap=max(1, gap_kf // 2))
+    graph = c.lc.SparsePoseGraph(pad_loops=pgc.loop_max_count)
+    for a, b in pairs:
+        fi, fj = kf_idx[a], kf_idx[b]
+        pose_i = Pose(T(traj[fi, 1:4]), T(traj[fi, 4:8]))
+        pose_j = Pose(T(traj[fj, 1:4]), T(traj[fj, 4:8]))
+        if edge_matcher == "submap":
+            guess = guesses.get((a, b))
+            if guess is None:
+                guess = pose_i.inverse().compose(pose_j)
+            neighbors = []
+            for fn_ in (fi - stride, fi, fi + stride):
+                if fn_ in keyframes:
+                    pose_n = Pose(T(traj[fn_, 1:4]), T(traj[fn_, 4:8]))
+                    neighbors.append((keyframes[fn_],
+                                      pose_i.inverse().compose(pose_n)))
+            rel, ok = c.lc.match_loop_pair_submap(neighbors, keyframes[fj],
+                                                  guess, cfg)
+        else:
+            rel, ok = c.lc.match_loop_pair(keyframes[fi], keyframes[fj],
+                                           pose_i, pose_j, cfg,
+                                           guess=guesses.get((a, b)))
+        if bool(ok):
+            graph.add_edge(c.lc.LoopEdge(fi, fj, rel.t.cpu().numpy(),
+                                         rel.q.cpu().numpy()))
+    out = graph.optimize(poses, data, pgc, n_iters=pgc.iterations)
+    return out, [(e.frame_i, e.frame_j) for e in graph.edges], pairs
+
+
+def shutdown_fusion(c, drive, mode):
+    """run_slam's shutdown pose-graph fusion (apps/run_slam.py:453-487) on a
+    finished drive: loop closure with a detector and an edge matcher, or
+    the sim-GPS pose graph. Returns (summary, launches of the step)."""
+    torch, Pose, pg, kernels = c.torch, c.Pose, c.pg, c.kernels
+    traj, keyframes, gt, gps_t, gps_xyz = drive
+    T = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=c.dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    poses = Pose(T(traj[:, 1:4]), T(traj[:, 4:8]))
+    if mode == "sim_gps":
+        g_t, g_xyz = T(gps_t), T(gps_xyz)
+        g_valid = torch.ones(len(gps_t), dtype=torch.bool, device=c.dev)
+    else:                     # placeholder row; invalid, so inert
+        g_t, g_xyz = T(np.zeros(1)), T(np.zeros((1, 3)))
+        g_valid = torch.zeros(1, dtype=torch.bool, device=c.dev)
+    data = pg.build_graph_data(T(traj[:, 0]), poses, g_t, g_xyz, g_valid)
+    n_real = len(traj)
+    poses, data = pg.pad_graph(poses, data, pg.next_bucket(n_real))
+    edges = pairs = None
+    if mode == "sim_gps":
+        out = pg.optimize(poses, data, c.sim_cfg.posegraph,
+                          n_iters=c.sim_cfg.posegraph.iterations)
+    else:
+        out, edges, pairs = close_loops(c, poses, data, traj, keyframes,
+                                        *mode)
+    fused = traj.copy()
+    fused[:, 1:4] = out.poses.t[:n_real].cpu().numpy()
+    fused[:, 4:8] = out.poses.q[:n_real].cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    gt_rel = gt - gt[0]
+    return dict(ate_before=c.ate_rmse(traj[:, 1:4], gt_rel),
+                ate=c.ate_rmse(fused[:, 1:4], gt_rel),
+                cost=(float(out.initial_cost), float(out.final_cost)),
+                edges=edges, candidates=pairs, wall=wall,
+                finite=bool(np.isfinite(fused).all())), launches
+
+
+def shutdown_fusion_phase(c):
+    """Phase 7(b): the out-and-back drive four ways and the straight drive;
+    returns block_tridiag's launches over the five shutdown steps."""
+    loop = slam_drive(c, "loop", 30)
+    straight = slam_drive(c, "straight", 25)
+    runs = [("out-and-back, proximity + scan matcher", loop,
+             ("proximity", "scan"), 0.08),
+            ("out-and-back, scan context + scan matcher", loop,
+             ("scan_context", "scan"), 0.08),
+            ("out-and-back, proximity + submap matcher", loop,
+             ("proximity", "submap"), 0.08),
+            ("out-and-back, --sim_gps --posegraph", loop, "sim_gps", 0.1),
+            ("straight, proximity + scan matcher", straight,
+             ("proximity", "scan"), 0.08)]
+    total = 0
+    for k, (label, drive, mode, bound) in enumerate(runs):
+        s, launches = shutdown_fusion(c, drive, mode)
+        total += launches["block_tridiag"]
+        say(f"shutdown fusion, {label}: loop candidates (keyframe indices) "
+            f"{s['candidates']}, edges accepted (frames) {s['edges']}; cost {s['cost'][0]:.6g} -> "
+            f"{s['cost'][1]:.6g}; ATE {s['ate_before']:.5f} -> "
+            f"{s['ate']:.5f} m (bound {bound} m); {s['wall']:.2f} s; "
+            f"launches {launches}")
+        if not s["finite"] or s["ate"] >= bound:
+            fail(f"{label}: ATE {s['ate']} m")
+        if launches["block_tridiag"] != c.sim_cfg.posegraph.iterations:
+            fail(f"{label}: {launches['block_tridiag']} block_tridiag "
+                 f"launches, one per GN iteration expected")
+        if k == 0 and (len(s["edges"]) < 1 or launches["odo_corr"] < 1
+                       or launches["select_fit"] < 1):
+            fail(f"{label}: {len(s['edges'])} loop edges, launches "
+                 f"{launches}")
+        if k == 4 and s["edges"]:
+            fail(f"{label}: {s['edges']} loop edges on a drive with no "
+                 f"revisit")
+    return total
+
+
+def kitti_graph_phase(c, prob):
+    """Phase 7(c): optimize and optimize_with_loops at KITTI-00 size."""
+    torch, pg = c.torch, c.pg
+    gt_t, poses0, data, loops = prob
+    n = len(gt_t)
+    cfg = c.sim_cfg.posegraph
+
+    def errs(poses):
+        t = poses.t[:n].cpu().numpy()
+        return (float(np.linalg.norm(t[-1] - gt_t[-1])),
+                float(np.linalg.norm(t - gt_t, axis=1).mean()))
+    d0, e0 = errs(poses0)
+    say(f"KITTI-size graph: {n} poses padded to {poses0.t.shape[0]}, "
+        f"{int(data.gps_valid.sum())} GPS fixes, {loops.idx_i.shape[0]} loop "
+        f"factors; before: end-pose drift {d0:.3f} m, mean position error "
+        f"{e0:.3f} m")
+    for name, run in (("optimize", lambda: pg.optimize(poses0, data, cfg,
+                                                       n_iters=10)),
+                      ("optimize_with_loops", lambda: pg.optimize_with_loops(
+                          poses0, data, loops, cfg, n_iters=10))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d1, e1 = errs(out.poses)
+        ic, fc = float(out.initial_cost), float(out.final_cost)
+        say(f"KITTI-size {name}, 10 iterations: {wall * 1e3:.1f} ms wall; "
+            f"cost {ic:.6g} -> {fc:.6g}; end-pose drift {d1:.3f} m, mean "
+            f"position error {e1:.3f} m (not gated)")
+        if not (torch.isfinite(out.poses.t).all() and
+                torch.isfinite(out.poses.q).all()) or not fc < ic:
+            fail(f"KITTI-size {name}: finite poses and a falling cost "
+                 f"expected ({ic} -> {fc})")
+
+    stage_s = {}
+    saved = staged_patches(torch, stage_s, [
+        (pg, "_chain_cost", "cost"), (pg, "_loop_terms", "cost"),
+        (pg, "_assemble_chain", "assembly"),
+        (pg, "_assemble_loops", "assembly"),
+        (pg, "solve_block_tridiag_multi", "solve"),
+        (pg, "_capacitance_correction", "capacitance"),
+        (c.Pose, "retract", "retract")])
+    try:
+        t0 = time.perf_counter()
+        pg.optimize_with_loops(poses0, data, loops, cfg, n_iters=10)
+        wall = time.perf_counter() - t0
+    finally:
+        restore(saved)
+    say(f"KITTI-size optimize_with_loops stages (host clock, synchronised, "
+        f"ms over 10 iterations of a {wall * 1e3:.1f} ms run): " + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in stage_s.items()))
+    prof = profile_frames(torch, lambda: pg.optimize_with_loops(
+        poses0, data, loops, cfg, n_iters=10),
+        "KITTI-size optimize_with_loops, 10 iterations")
+    if prof:
+        say(f"KITTI-size optimize_with_loops: {prof['launches'] / 10:.0f} "
+            f"launches per GN iteration, device busy {100 * prof['busy']:.1f}%")
+
+
+def pg_parity_phase(c):
+    """Phase 7(d): the plain versions on the CPU against the card on the
+    KITTI-size problem cut to N=64."""
+    pg, cfg = c.pg, c.sim_cfg.posegraph
+    worst = 0.0
+    outs = {}
+    for key, dev in (("cpu", "cpu"), ("card", c.dev)):
+        _, poses0, data, loops = pg_problem(c, 64, 8, dev)
+        outs[key] = (pg.optimize(poses0, data, cfg, n_iters=10),
+                     pg.optimize_with_loops(poses0, data, loops, cfg,
+                                            n_iters=10))
+    for a, b in zip(outs["cpu"], outs["card"]):
+        worst = max(worst, float((a.poses.t - b.poses.t.cpu()).abs().max()),
+                    float((a.poses.q - b.poses.q.cpu()).abs().max()))
+    say(f"pose graph cpu plain versions vs card, N=64, optimize and "
+        f"optimize_with_loops: max |dpose| {worst:.2e} (tolerance 1e-3)")
+    if worst > 1e-3:
+        fail(f"pose graph CPU and card poses differ by {worst}")
+
+
+def posegraph_phase(c, row):
+    """Phase 7: pose graph and loop closure; returns block_tridiag's
+    launches on the shutdown-fusion path."""
+    prob = pg_problem(c, PG_KITTI_N, PG_LOOPS, c.dev)
+    system = first_gn_system(c, *prob[1:], c.sim_cfg.posegraph)
+    timed("pose graph: block_tridiag",
+          lambda: posegraph_kernel_phase(c, row, system))
+    del system
+    launches = timed("pose graph: shutdown fusion",
+                     lambda: shutdown_fusion_phase(c))
+    timed("pose graph: KITTI-size graph", lambda: kitti_graph_phase(c, prob))
+    timed("pose graph: CPU parity", lambda: pg_parity_phase(c))
+    return launches
+
+
 # ----------------------------------------------------------------- main
 def main():
     import torch
@@ -1499,11 +1972,16 @@ def main():
     from msf_loam_tpu_torch.ops import pallas_knn as kn
     from msf_loam_tpu_torch.ops import pick_rounds as pr
     from msf_loam_tpu_torch.ops import select_fit as sf
+    from msf_loam_tpu_torch.core import se3
     from msf_loam_tpu_torch.core.pointcloud import RingImage
+    from msf_loam_tpu_torch.ops import block_tridiag as bt
     from msf_loam_tpu_torch.slam import batch_pipeline as bp
     from msf_loam_tpu_torch.slam import mapping, odometry
     from msf_loam_tpu_torch.slam import pipeline as pipe_mod
     from msf_loam_tpu_torch.slam import voxel_map as vm
+    from msf_loam_tpu_torch.slam import loop_closure as lc
+    from msf_loam_tpu_torch.slam import posegraph as pg
+    from msf_loam_tpu_torch.slam import scan_context as sc
     from msf_loam_tpu_torch.slam.pipeline import SlamPipeline, ate_rmse
 
     c = types.SimpleNamespace(
@@ -1515,8 +1993,8 @@ def main():
         features=features, oc=oc, kn=kn, pr=pr, sf=sf, mapping=mapping,
         odometry=odometry, pipe_mod=pipe_mod, vm=vm,
         SlamPipeline=SlamPipeline, ate_rmse=ate_rmse, bp=bp,
-        RingImage=RingImage,
-        dev=torch.device("cuda"))
+        RingImage=RingImage, bt=bt, pg=pg, sc=sc, lc=lc, se3=se3,
+        Pose=se3.Pose, dev=torch.device("cuda"))
     t_start = time.perf_counter()
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1564,6 +2042,8 @@ def main():
         imu=ImuConfig(tight_coupling=True, init_frames=6, warmup_msgs=10,
                       max_imu_samples=64))
     c.bench_world = synthetic.World.corridor(seed=0, size=14.0)
+    # apps/run_slam.py --selftest: the default config, 2048-point rings
+    c.sim_cfg = MsfLoamConfig(features=FeatureConfig(max_points_per_ring=2048))
     c.lio_world = synthetic.World.corridor(seed=0, size=12.0)
 
     # ---- 2. kernels against their plain versions
@@ -1584,11 +2064,17 @@ def main():
     lio_launches = timed("LIO speed", lambda: lio_speed_phase(c))
     # ---- 6. the batched multi-sequence path
     batch_launches = timed("batched path", lambda: batch_path_phase(c))
+    # ---- 7. pose graph and loop closure
+    rows["block_tridiag"] = Row()
+    pg_launches = timed("pose graph and loop closure",
+                        lambda: posegraph_phase(c, rows["block_tridiag"]))
 
-    launches = dict(lio_launches, knn=knn_launches)
+    launches = dict(lio_launches, knn=knn_launches,
+                    block_tridiag=pg_launches)
     say(f"launches: LIO speed run {lio_launches}, lidar speed run "
           f"{lidar_launches}, knn path {knn_launches}, batched B={BATCH_B} "
-          f"speed run {batch_launches}")
+          f"speed run {batch_launches}, block_tridiag on the shutdown "
+          f"fusions {pg_launches}")
 
     def entry(name, label, o, n):
         if n <= 0:

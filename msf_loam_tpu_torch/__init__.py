@@ -1,6 +1,6 @@
 """msf_loam_tpu_torch: the MSF-LOAM lidar-only and tightly-coupled
-LiDAR-IMU frames in PyTorch, with four hand-written Hopper kernels
-(``csrc/``).
+LiDAR-IMU frames, the batched pipeline and the GPS / loop-closure pose
+graph in PyTorch, with five hand-written Hopper kernels (``csrc/``).
 
 Precision: importing the package turns TF32 off for CUDA matmuls and
 cuDNN (``torch.backends.cuda.matmul.allow_tf32 = False``,

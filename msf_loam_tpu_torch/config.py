@@ -1,4 +1,5 @@
-"""Configuration of the PyTorch port: features, odometry, mapping and IMU.
+"""Configuration of the PyTorch port: features, odometry, mapping, IMU and
+the pose graph.
 
 Field names, defaults and validation follow the JAX package's config so one
 set of values describes both implementations. The tri-state kernel switches
@@ -129,6 +130,24 @@ class ImuConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoseGraphConfig:
+    """GPS / loop-closure pose graph (gps_fusion.cc)."""
+
+    gps_sigma_t: float = 0.01          # GpsFactor st
+    rel_sigma_r: float = 0.01          # RelativePoseFactor sr
+    rel_sigma_t: float = 0.1           # RelativePoseFactor st
+    huber_delta: float = 1.0           # HuberLoss(1.0)
+    iterations: int = 10               # max_num_iterations
+    sim_gps_period: int = 10           # every 10th ground-truth pose -> 1 Hz
+    sim_gps_noise: float = 0.05        # U(-5, 5) cm
+    loop_max_dist: float = 3.0         # proximity radius for candidates (m)
+    loop_min_index_gap: int = 20       # frames between revisit candidates
+    loop_max_count: int = 8            # static padding for LoopFactors
+    loop_keyframe_stride: int = 5      # keep features every K frames
+    loop_sc_max_dist: float = 0.25     # scan-context cosine-distance gate
+
+
+@dataclasses.dataclass(frozen=True)
 class MsfLoamConfig:
     """Top-level config of the port."""
 
@@ -136,6 +155,8 @@ class MsfLoamConfig:
     odometry: OdometryConfig = dataclasses.field(default_factory=OdometryConfig)
     mapping: MappingConfig = dataclasses.field(default_factory=MappingConfig)
     imu: ImuConfig = dataclasses.field(default_factory=ImuConfig)
+    posegraph: PoseGraphConfig = dataclasses.field(
+        default_factory=PoseGraphConfig)
 
     def __post_init__(self):
         self.validate()

@@ -144,9 +144,15 @@ class Pose(NamedTuple):
     q: Tensor  # (..., 4) [w, x, y, z]
 
     @staticmethod
-    def identity(device=None, dtype=torch.float32) -> "Pose":
-        return Pose(torch.zeros(3, dtype=dtype, device=device),
-                    quat_identity(device, dtype))
+    def identity(device=None, dtype=torch.float32,
+                 batch_shape=()) -> "Pose":
+        """The identity pose, or a ``batch_shape`` batch of them."""
+        batch_shape = tuple(batch_shape)
+        q = quat_identity(device, dtype)
+        if batch_shape:
+            q = q.expand(batch_shape + (4,)).contiguous()
+        return Pose(torch.zeros(batch_shape + (3,), dtype=dtype,
+                                device=device), q)
 
     def compose(self, other: "Pose") -> "Pose":
         """self * other (apply other first, then self), normalised."""

@@ -1,8 +1,9 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 The JAX package's state — voxel hash maps, poses, point batches, scan
-features, ring images, the batched pipeline's state and the IMU
-estimator (preintegrations, states, the sample buffer) — is this
+features, ring images, the batched pipeline's state, the IMU
+estimator (preintegrations, states, the sample buffer) and pose-graph
+problems (graph data, loop factors) — is this
 system's "weights". These functions
 build the port's tensors from any object exposing the JAX containers'
 field names with array-like values (for example a JAX NamedTuple after
@@ -24,6 +25,7 @@ from msf_loam_tpu_torch.imu.buffer import ImuBuffer
 from msf_loam_tpu_torch.imu.imu_factor import ImuState
 from msf_loam_tpu_torch.imu.preintegration import Preintegration
 from msf_loam_tpu_torch.slam.batch_pipeline import BatchState
+from msf_loam_tpu_torch.slam.posegraph import LoopFactors, PoseGraphData
 from msf_loam_tpu_torch.slam.voxel_map import VoxelHashMap
 
 
@@ -145,3 +147,24 @@ def batch_state_from_numpy(st: Any, device="cuda"):
         pose_odom=pose_from_numpy(st.pose_odom, device),
         pose_o2m=pose_from_numpy(st.pose_o2m, device),
         frame_idx=int(np.asarray(st.frame_idx)))
+
+
+def pose_graph_data_from_numpy(d: Any, device="cuda") -> PoseGraphData:
+    """A port ``PoseGraphData`` from one with the JAX fields (times,
+    relative measurements, GPS ties); indices become int64."""
+    return PoseGraphData(
+        times=_t(d.times, torch.float32, device),
+        rel_meas=pose_from_numpy(d.rel_meas, device),
+        rel_valid=_t(d.rel_valid, torch.bool, device),
+        gps_xyz=_t(d.gps_xyz, torch.float32, device),
+        gps_seg=_t(d.gps_seg, torch.int64, device),
+        gps_frac=_t(d.gps_frac, torch.float32, device),
+        gps_valid=_t(d.gps_valid, torch.bool, device))
+
+
+def loop_factors_from_numpy(lf: Any, device="cuda") -> LoopFactors:
+    """Port ``LoopFactors`` from padded ones with the JAX fields."""
+    return LoopFactors(idx_i=_t(lf.idx_i, torch.int64, device),
+                       idx_j=_t(lf.idx_j, torch.int64, device),
+                       meas=pose_from_numpy(lf.meas, device),
+                       valid=_t(lf.valid, torch.bool, device))

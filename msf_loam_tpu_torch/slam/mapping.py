@@ -1,6 +1,7 @@
 """Scan-to-map registration against the voxel hash maps (port of the JAX
 package's ``slam/mapping.py`` on its cached fused-selection branch): the
-loosely-coupled matcher ``match_scan2map_core`` and the IMU-coupled
+loosely-coupled matcher ``match_scan2map_core`` (``match_scan2map``
+without query groups) and the IMU-coupled
 ``match_scan2map_deskew_core`` / ``match_scan2map_tight_core``.
 
 The 8-cell octant candidates of both feature clouds are gathered once per
@@ -151,6 +152,15 @@ def match_scan2map_core(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
     return MappingResult(pose=pose, velocity=zero_v, n_edge=n_edge,
                          n_plane=n_plane,
                          ok=map_ok & ((n_edge + n_plane) >= 10), cost=cost)
+
+
+def match_scan2map(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
+                   scan_corner: PointBatch, scan_surf: PointBatch,
+                   pose0: Pose, cfg: MappingConfig) -> MappingResult:
+    """Loosely-coupled scan-to-map Gauss-Newton without query groups: the
+    one-level planar gather, then the fused selection + fit rounds."""
+    return match_scan2map_core(corner_map, surf_map, scan_corner, scan_surf,
+                               pose0, cfg)
 
 
 def _match_deskew(corner_map, surf_map, scan_corner: PointBatch,

@@ -97,10 +97,11 @@ def test_three_frame_drive_matches_jax_frame_by_frame():
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():
-    """AST check over every module of the port: no ``jax`` and no
-    ``msf_loam_tpu`` (``msf_loam_tpu_torch`` is the port itself)."""
+    """AST check over every module of the port and the chip smoke run: no
+    ``jax`` and no ``msf_loam_tpu`` (``msf_loam_tpu_torch`` is the port
+    itself)."""
     root = pathlib.Path(msf_loam_tpu_torch.__file__).parent
-    files = sorted(root.rglob("*.py"))
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert len(files) >= 15
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -113,7 +114,7 @@ def test_package_imports_neither_jax_nor_the_jax_package():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "msf_loam_tpu"), \
-                    f"{path.relative_to(root)} imports {name}"
+                    f"{path.relative_to(root.parent)} imports {name}"
 
 
 def test_default_device_raises_without_cuda():
