@@ -91,12 +91,17 @@ Phases (any failure raises and exits non-zero before the result line):
 
 7. pose graph and loop closure (``slam.posegraph``, ``slam.loop_closure``,
    ``slam.scan_context``) with the block-Thomas kernel ``block_tridiag``:
-   (a) the kernel bit-equal to its plain version on seeded SPD systems at
-   N = 20 and 64 with m = 1 and 49 right-hand sides, and on the first
-   Gauss-Newton system with loops of (c) (N = 8192, m = 49: one call of the
-   plain version, timed); event, device-only and batch times at N = 8192,
-   m = 1 and 49, launch geometry, the bound, and the dense
-   torch.linalg.solve of the assembled 6N x 6N system as the library
+   (a) the segmented kernel bit-equal to its plain version on seeded SPD
+   systems at N = 20 and 64 with m = 1 and 49 right-hand sides, on edge
+   shapes (N = 1, 2, 3; segments of 2; a ragged last segment; a lone last
+   block joined to its neighbour; P = 1 by force; JAX's 8 x 8 segments),
+   and on the first Gauss-Newton system with loops of (c) (N = 8192,
+   m = 49) under the segment rule (one call of the plain version, timed)
+   and at segment lengths 64 and 256; event, device-only and batch times
+   at N = 8192, m = 1 and 49, the rule's L and P, the chain depth and the
+   time a dependent step, the launch geometry (grid blocks, threads,
+   registers, local bytes), the bound, a segment-length sweep, and the
+   dense torch.linalg.solve of the assembled 6N x 6N system as the library
    yardstick (median of 3 at N = 1024, one call at N = 8192);
    (b) apps/run_slam.py's shutdown fusion on the port at full width (its
    --selftest drive: default config, 16 rings x 1800 points, keyframes
@@ -150,7 +155,8 @@ REPLACES = {
     "select_fit": "msf_loam_tpu/ops/select_fit.py:276",
     "knn": "msf_loam_tpu/ops/pallas_knn.py:102",
     "block_tridiag": "msf_loam_tpu/slam/posegraph.py:475 solve_block_tridiag "
-                     "(lax.scan)",
+                     "(lax.scan; decomposition of "
+                     "msf_loam_tpu/parallel/distributed_ba.py)",
 }
 DEVICE_KERNEL = {"pick_rounds": "pick_rounds_kernel",
                  "odo_corr": "odo_corr_kernel",
@@ -1569,15 +1575,22 @@ def first_gn_system(c, poses, data, loops, cfg):
     return D, U, c.torch.cat([-b[..., None], W], -1)
 
 
-def tridiag_work(N, m):
-    """(bytes, float operations) of one block-Thomas solve: D, U and B read
-    once and X written once; per step the 6x6 factorisation, the six
-    columns of Dt⁻¹U, the 6 x (6+m) update and the m backward columns."""
+def tridiag_work(bt, N, m):
+    """(bytes, float operations) of one segmented solve: D, U and B read
+    once and X written once; per interior block the condensation step (the
+    6x6 factorisation, 12 + m solved columns, the 6 x (12 + m) and
+    6 x (6 + m) updates) and m back-substituted columns; per separator
+    block the block-Thomas forward step and m backward columns."""
+    L, P = bt.segments(N)
     nbytes = 4 * (36 * N + 36 * (N - 1) + 2 * 6 * m * N)
-    factor = sum(2 * (5 - k) * (6 - k) for k in range(6))
+    factor = sum((5 - k) + 2 * (5 - k) ** 2 for k in range(6))
     solve_col = 2 * 15 + 6 + 2 * 15
-    ops = N * (factor + 6 * solve_col + 12 * 6 * (6 + m)
-               + m * (12 * 6 + solve_col))
+    interior = max(N - 2 * P, 0)
+    nsep = 1 if N == 1 else 2 * P
+    ops = (interior * (factor + (12 + m) * solve_col + 12 * 6 * (12 + m)
+                       + 12 * 6 * (6 + m) + m * (2 * 12 * 6 + solve_col))
+           + nsep * (factor + 6 * solve_col + 12 * 6 * (6 + m)
+                     + m * (12 * 6 + solve_col)))
     return nbytes, ops
 
 
@@ -1601,11 +1614,11 @@ def seeded_tridiag(torch, rng, N, m, dev):
     return T(D), T(U), T(B)
 
 
-def check_tridiag(torch, bt, D, U, B, tag):
+def check_tridiag(torch, bt, D, U, B, tag, seg_len=None):
     """The plain version's solution, after holding the kernel to it."""
-    want = bt.block_tridiag_plain(D, U, B)
+    want = bt.block_tridiag_plain(D, U, B, seg_len)
     torch.cuda.synchronize()
-    got = bt.block_tridiag(D, U, B)
+    got = bt.block_tridiag(D, U, B, seg_len)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         fail(f"block_tridiag {tag}: non-finite solution")
@@ -1617,8 +1630,10 @@ def check_tridiag(torch, bt, D, U, B, tag):
 
 def posegraph_kernel_phase(c, row, system):
     """block_tridiag against its plain version (bit-equal) on seeded SPD
-    systems and on the KITTI-size graph's first GN system with loops, its
-    times, launch geometry, bound and the dense-solve yardstick."""
+    systems, edge shapes and forced segment lengths, and on the KITTI-size
+    graph's first GN system with loops; its times, segments, chain depth,
+    launch geometry, bound, the dense-solve yardstick and a segment-length
+    sweep."""
     torch, bt = c.torch, c.bt
     rng = np.random.default_rng(0)
     for N in (20, 64):
@@ -1629,16 +1644,34 @@ def posegraph_kernel_phase(c, row, system):
             res = (H @ X.double().reshape(6 * N, m)
                    - B.double().reshape(6 * N, m)).abs().max()
             say(f"block_tridiag N={N} m={m}: bit-equal to plain; max "
-                f"|H x - b| {float(res):.2e} (float64 residual)")
+                f"|H x - b| {float(res):.2e} (float64 residual); segments "
+                f"{bt.segments(N)}")
+    # edge shapes and forced segments: N = 1, 2, 3 (one segment), segments
+    # of 2 (no interior), ragged (5 x 4 + 3), a lone last block joined to
+    # its neighbour (4 + 5), P = 1 by force, JAX's 8 x 8 and 13-block ones
+    edge = [(1, 1, None), (2, 49, None), (3, 1, None), (8, 3, 2),
+            (23, 4, 5), (9, 4, 4), (30, 49, 30), (64, 9, 8), (64, 49, 13)]
+    for N, m, seg_len in edge:
+        D, U, B = seeded_tridiag(torch, rng, N, m, c.dev)
+        check_tridiag(torch, bt, D, U, B, f"N={N} m={m} seg_len={seg_len}",
+                      seg_len)
+    say(f"block_tridiag edge shapes (N, m, seg_len) {edge}: bit-equal to "
+        f"plain")
     D, U, B = system
     N, m = B.shape[0], B.shape[2]
+    L, P = bt.segments(N)
+    depth = bt.chain_depth(N, L, P)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     check_tridiag(torch, bt, D, U, B, f"KITTI-size first GN system N={N} "
                   f"m={m}")
     plain_ms = (time.perf_counter() - t0) * 1e3    # one plain call
+    for seg_len in (64, 256):
+        check_tridiag(torch, bt, D, U, B, f"KITTI-size first GN system "
+                      f"seg_len={seg_len}", seg_len)
     say(f"block_tridiag KITTI-size first GN system with loops (N={N}, "
-        f"m={m}): bit-equal to its plain version")
+        f"m={m}): bit-equal to its plain version under the rule (L={L}, "
+        f"P={P}) and at seg_len 64 and 256")
     for mm in (1, m):
         Bm = B[..., :mm].contiguous()
         fn = lambda: bt.block_tridiag(D, U, Bm)
@@ -1649,18 +1682,28 @@ def posegraph_kernel_phase(c, row, system):
                                 reps=PG_REPS)
         t["device_ms"] = dev_ms if dev_ms is not None else t["batch_ms"]
         t["device_from"] = "profiler" if dev_ms is not None else "batch"
-        nbytes, nops = tridiag_work(N, mm)
+        nbytes, nops = tridiag_work(bt, N, mm)
         b, by = bound_ms(nbytes, nops)
-        say(f"block_tridiag N={N} m={mm}: kernel {t['ms']:.3f} ms (events), "
-            f"device {t['device_ms']:.3f} ms ({t['device_from']}; batch "
-            f"{t['batch_ms']:.3f}), {t['device_ms'] / N / 2 * 1e3:.2f} us a "
-            f"block step; bound {b * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} "
-            f"MB, {nops / 1e6:.1f} Mflop; the 2N dependent 6x6 steps bound "
-            f"it in practice); launch {bt.launch_geometry(mm)}")
+        say(f"block_tridiag N={N} m={mm}: kernel {t['ms']:.4f} ms (events), "
+            f"device {t['device_ms']:.4f} ms ({t['device_from']}; batch "
+            f"{t['batch_ms']:.4f}); L={L}, P={P}, chain depth {depth} "
+            f"dependent 6x6 steps, {t['device_ms'] / depth * 1e3:.3f} us a "
+            f"step; bound {b * 1e3:.2f} us ({by}: {nbytes / 1e6:.1f} MB, "
+            f"{nops / 1e6:.1f} Mflop); launch "
+            f"{bt.launch_geometry(N, mm)}")
         if mm == m:
             row.add(t, nbytes, nops)
     say(f"block_tridiag plain version, one call at N={N} m={m}: "
         f"{plain_ms:.1f} ms")
+    sweep = []
+    for seg_len in (64, 96, 128, 181, 256):
+        Ls, Ps = bt.segments(N, seg_len)
+        ms = batch_ms(torch, lambda: bt.block_tridiag(D, U, B, seg_len),
+                      reps=PG_REPS)
+        sweep.append(f"L={Ls} P={Ps} depth {bt.chain_depth(N, Ls, Ps)}: "
+                     f"{ms:.4f} ms")
+    say(f"block_tridiag segment-length sweep, N={N} m={m} (batch of "
+        f"{PG_REPS}): " + "; ".join(sweep))
     lib = {}
     for n_lib, reps in ((min(1024, N), 3), (N, 1)):
         Dl, Ul, Bl = D[:n_lib], U[:n_lib - 1], B[:n_lib]

@@ -1,4 +1,4 @@
-"""Block-Thomas solve of a symmetric block-tridiagonal system:
+"""Segmented solve of a symmetric block-tridiagonal system:
 ``csrc/block_tridiag.cu`` on a CUDA tensor, the plain PyTorch version below
 on a CPU tensor.
 
@@ -6,16 +6,26 @@ Replaces the XLA ``lax.scan`` sweeps of the JAX package's
 ``slam/posegraph.py`` (``solve_block_tridiag`` /
 ``solve_block_tridiag_multi``); no Pallas kernel is involved. For D
 (N, 6, 6), U (N-1, 6, 6) and B (N, 6, m) it returns X with
-tridiag(Uᵀ, D, U) X = B. Each 6x6 solve is Gaussian elimination with
-partial pivoting (first maximal |pivot|, divisions, never reciprocals) and
-each 6-term block product is summed k = 0..5 as separate multiplies and
-adds, in the same order in both versions: the kernel is bit-equal to the
-plain version.
+tridiag(Uᵀ, D, U) X = B, by the decomposition of the JAX package's
+``parallel/distributed_ba.py`` with segments in place of devices: the
+blocks are cut into P segments of L (``segments``); each segment condenses
+its interior onto its first and last block (Schur complement, the
+recurrence of ``_condense_chain``); the 2P endpoint blocks are solved by
+block-Thomas; each segment back-substitutes its interior. The segments run
+in parallel, so the chain of dependent 6x6 steps is about 2L + 4P instead
+of 2N.
+
+Each 6x6 solve is Gaussian elimination with partial pivoting (first
+maximal |pivot|, divisions, never reciprocals) and each 6-term product is
+summed k = 0..5 as separate multiplies and adds, in the same order in both
+versions: the kernel is bit-equal to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,116 +33,227 @@ from msf_loam_tpu_torch import kernels
 
 Tensor = torch.Tensor
 
-_FAC = 72          # floats of one step's factor in the kernel's scratch
 MAX_RHS = 1024     # right-hand-side columns one launch takes
-_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
+_LAUNCH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SCRATCH_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 
-def _factor(A: Tensor):
-    """Gaussian elimination with partial pivoting of a 6x6, rows swapped as
-    it goes. Returns (eliminated rows, multipliers, pivot order): row i of
-    the first two is the row that ended at position i; ``F[i, k]`` is its
-    multiplier at step k (for i > k). No host synchronisation."""
-    G = torch.cat([A, torch.zeros_like(A)], dim=1)   # [A | F]
-    rows = torch.arange(6, device=A.device)
-    perm = rows.clone()
-    for k in range(6):
-        p = torch.argmax(G[k:, k].abs()) + k          # first maximal |pivot|
-        idx = rows.clone()
-        idx[k] = p
-        idx.index_put_((p,), rows[k])
-        G = G.index_select(0, idx)
-        perm = perm.index_select(0, idx)
-        if k < 5:
-            f = G[k + 1:, k] / G[k, k]
-            G[k + 1:, 6 + k] = f
-            G[k + 1:, k + 1:6] -= f[:, None] * G[k, k + 1:6]
-    return G[:, :6], G[:, 6:], perm
+def segments(N: int, seg_len: Optional[int] = None) -> Tuple[int, int]:
+    """(L, P): P segments of L blocks, the last holding the rest. The rule
+    L = max(2, isqrt(2N)) about minimises the chain depth 2L + 4P
+    (L = 128, P = 64 at N = 8192); ``seg_len`` forces L. A last segment of
+    one block joins the one before it, so every segment holds at least 2
+    blocks unless N = 1."""
+    if N == 1:
+        return 1, 1
+    L = max(2, math.isqrt(2 * N)) if seg_len is None else int(seg_len)
+    if L < 2:
+        raise ValueError(f"block_tridiag: segments of at least 2 blocks, "
+                         f"got seg_len={seg_len}")
+    P = -(-N // L)
+    if P > 1 and N - (P - 1) * L == 1:
+        P -= 1
+    return L, P
 
 
-def _apply(fac, R: Tensor) -> Tensor:
-    """Solve with a stored factor for the columns of R (6, c)."""
-    A, F, perm = fac
-    Y = R.index_select(0, perm)
-    for k in range(5):
-        Y[k + 1:] -= F[k + 1:, k:k + 1] * Y[k:k + 1]
+def chain_depth(N: int, L: int, P: int) -> int:
+    """Dependent 6x6 steps of one solve: condensation and back-substitution
+    of the longest segment, and the separator's forward and backward
+    sweeps."""
+    longest = N if P == 1 else max(L, N - (P - 1) * L)
+    nsep = 1 if N == 1 else 2 * P
+    return 2 * max(longest - 2, 0) + 2 * nsep - 1
+
+
+# ------------------------------------------------------------ plain version
+# Every helper works on a leading batch axis (the segments).
+def _swap_rows(G: Tensor, k: int, p: Tensor) -> Tensor:
+    """Rows k and p[b] of each G[b] swapped."""
+    n = G.shape[0]
+    idx = torch.arange(G.shape[1], device=G.device).repeat(n, 1)
+    idx[:, k] = p
+    idx[torch.arange(n, device=G.device), p] = k
+    return torch.gather(G, 1, idx[:, :, None].expand_as(G))
+
+
+def _back(G: Tensor, Y: Tensor) -> Tensor:
+    """Back substitution with the upper factor held in G[:, :, :6]."""
     for k in range(5, -1, -1):
-        Y[k] /= A[k, k]
+        Y[:, k] = Y[:, k] / G[:, k, k:k + 1]
         if k:
-            Y[:k] -= A[:k, k:k + 1] * Y[k:k + 1]
+            Y[:, :k] = Y[:, :k] - G[:, :k, k:k + 1] * Y[:, k:k + 1]
     return Y
 
 
-def _product(L: Tensor, C: Tensor) -> Tensor:
-    """L (6, 6) @ C (6, c), summed k = 0..5 as separate multiplies and
-    adds."""
-    acc = L[:, 0:1] * C[0:1]
+def _eliminate(A: Tensor, R: Tensor):
+    """Gaussian elimination with partial pivoting of A (n, 6, 6), carried
+    over the columns of R (n, 6, c). Returns the factor (lu, piv) and
+    A⁻¹R: step k swaps rows k and piv[:, k] and keeps its multipliers at
+    lu[:, i, k], i > k, in that step's row order; lu's upper triangle is the
+    upper factor. No host synchronisation."""
+    G = torch.cat([A, R], dim=2)
+    lu = torch.zeros_like(A)
+    piv = []
+    for k in range(6):
+        p = torch.argmax(G[:, k:, k].abs(), dim=1) + k   # first maximal
+        piv.append(p)
+        G = _swap_rows(G, k, p)
+        if k < 5:
+            f = G[:, k + 1:, k] / G[:, k:k + 1, k]
+            lu[:, k + 1:, k] = f
+            G[:, k + 1:, k + 1:] = G[:, k + 1:, k + 1:] - \
+                f[:, :, None] * G[:, k:k + 1, k + 1:]
+    lower = torch.ones(6, 6, dtype=torch.bool, device=A.device).tril(-1)
+    lu = torch.where(lower, lu, G[:, :, :6])
+    return (lu, torch.stack(piv, 1)), _back(G, G[:, :, 6:].clone())
+
+
+def _apply(fac, R: Tensor) -> Tensor:
+    """A⁻¹R with a stored factor of A, for R (n, 6, c)."""
+    lu, piv = fac
+    Y = R.clone()
+    for k in range(6):
+        Y = _swap_rows(Y, k, piv[:, k])
+        if k < 5:
+            Y[:, k + 1:] = Y[:, k + 1:] - lu[:, k + 1:, k:k + 1] * Y[:, k:k + 1]
+    return _back(lu, Y)
+
+
+def _mm(A: Tensor, Z: Tensor) -> Tensor:
+    """A Z for A (n, 6, 6), Z (n, 6, c), summed k = 0..5 as separate
+    multiplies and adds."""
+    acc = A[:, :, 0:1] * Z[:, 0:1]
     for k in range(1, 6):
-        acc = acc + L[:, k:k + 1] * C[k:k + 1]
+        acc = acc + A[:, :, k:k + 1] * Z[:, k:k + 1]
     return acc
 
 
-def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor) -> Tensor:
-    """Plain PyTorch version: the kernel's recurrence, one block step at a
-    time from Python."""
-    N = D.shape[0]
-    facs = []
-    bts = [B[0]]
-    dt = D[0]
-    for i in range(1, N):
-        fac = _factor(dt)
+def _mm_t(A: Tensor, Z: Tensor) -> Tensor:
+    """Aᵀ Z, summed as ``_mm``."""
+    return _mm(A.transpose(1, 2), Z)
+
+
+def _thomas(Dg: Tensor, Ug: Tensor, Bg: Tensor) -> Tensor:
+    """Block-Thomas over the separator blocks (n, 6, 6), (n-1, 6, 6),
+    (n, 6, m): the kernel's phase 2, one block step at a time."""
+    n = Dg.shape[0]
+    facs, bts = [], [Bg[0:1]]
+    dt = Dg[0:1]
+    for i in range(1, n):
+        fac, Y = _eliminate(dt, Ug[i - 1:i])
         facs.append(fac)
-        Y = _apply(fac, U[i - 1])
-        step = torch.cat([D[i], B[i]], dim=1) - \
-            _product(Y.T, torch.cat([U[i - 1], bts[-1]], dim=1))
-        dt = step[:, :6]
-        bts.append(step[:, 6:])
-    facs.append(_factor(dt))
-    X = [None] * N
-    X[N - 1] = _apply(facs[N - 1], bts[N - 1])
-    for i in range(N - 2, -1, -1):
-        X[i] = _apply(facs[i], bts[i] - _product(U[i], X[i + 1]))
-    return torch.stack(X)
+        step = torch.cat([Dg[i:i + 1], Bg[i:i + 1]], 2) - \
+            _mm_t(Y, torch.cat([Ug[i - 1:i], bts[-1]], 2))
+        dt = step[:, :, :6]
+        bts.append(step[:, :, 6:])
+    facs.append(_eliminate(dt, bts[-1][:, :, :0])[0])
+    X = [None] * n
+    X[n - 1] = _apply(facs[n - 1], bts[n - 1])
+    for i in range(n - 2, -1, -1):
+        X[i] = _apply(facs[i], bts[i] - _mm(Ug[i:i + 1], X[i + 1]))
+    return torch.cat(X)
 
 
-def block_tridiag(D: Tensor, U: Tensor, B: Tensor) -> Tensor:
+def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor,
+                        seg_len: Optional[int] = None) -> Tensor:
+    """Plain PyTorch version: the kernel's decomposition, each condensation
+    and back-substitution step on all segments at once (a segment whose
+    interior is done keeps its state through ``torch.where``), the
+    separator one block step at a time."""
+    N, m = B.shape[0], B.shape[2]
+    L, P = segments(N, seg_len)
+    if N == 1:
+        return _thomas(D, U, B)
+    dev = B.device
+    start = torch.arange(P, device=dev) * L
+    lens = torch.full((P,), L, device=dev)
+    lens[-1] = N - (P - 1) * L
+    steps = int(lens.max()) - 2
+    S00, S0k, Skk = D[start], U[start], D[start + 1]
+    b0, bk = B[start], B[start + 1]
+    res = []
+    for k in range(1, steps + 1):
+        live = (k <= lens - 2)[:, None, None]
+        g = (start + k).clamp(max=N - 2)
+        Uk, Dn, Bn = U[g], D[g + 1], B[g + 1]
+        fac, Z = _eliminate(Skk, torch.cat([S0k.transpose(1, 2), Uk, bk], 2))
+        res.append((fac, S0k, bk))
+        top = _mm(S0k, Z)
+        bot = _mm_t(Uk, Z[:, :, 6:])
+        S00 = torch.where(live, S00 - top[:, :, :6], S00)
+        b0 = torch.where(live, b0 - top[:, :, 12:], b0)
+        S0k = torch.where(live, -top[:, :, 6:12], S0k)
+        Skk = torch.where(live, Dn - bot[:, :, :6], Skk)
+        bk = torch.where(live, Bn - bot[:, :, 6:], bk)
+    ends = start + lens - 1
+    Ub = U[ends.clamp(max=N - 2)]
+    Dg = torch.stack([S00, Skk], 1).reshape(2 * P, 6, 6)
+    Ug = torch.stack([S0k, Ub], 1).reshape(2 * P, 6, 6)[:-1]
+    Bg = torch.stack([b0, bk], 1).reshape(2 * P, 6, m)
+    xg = _thomas(Dg, Ug, Bg).reshape(P, 2, 6, m)
+    X = torch.empty_like(B)
+    X[start], X[ends] = xg[:, 0], xg[:, 1]
+    x0, xn = xg[:, 0], xg[:, 1]
+    for k in range(steps, 0, -1):
+        live = k <= lens - 2
+        fac, S0k_k, bk_k = res[k - 1]
+        Uk = U[(start + k).clamp(max=N - 2)]
+        x = _apply(fac, bk_k - _mm_t(S0k_k, x0) - _mm(Uk, xn))
+        xn = torch.where(live[:, None, None], x, xn)
+        X[(start + k)[live]] = x[live]
+    return X
+
+
+# ------------------------------------------------------------ the kernel
+def block_tridiag(D: Tensor, U: Tensor, B: Tensor,
+                  seg_len: Optional[int] = None) -> Tensor:
     """X (N, 6, m) with tridiag(Uᵀ, D, U) X = B, for float32 D (N, 6, 6),
-    U (N-1, 6, 6), B (N, 6, m): one kernel launch on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    U (N-1, 6, 6), B (N, 6, m): one cooperative kernel launch on a CUDA
+    tensor, the plain version on a CPU tensor. ``seg_len`` forces the
+    segment length (tests and chip checks; the main path leaves it None)."""
     N, m = B.shape[0], B.shape[-1]
     if D.shape != (N, 6, 6) or U.shape != (max(N - 1, 0), 6, 6) or \
             B.dim() != 3 or B.shape[1] != 6 or N < 1 or m < 1:
         raise ValueError(f"block_tridiag: D (N,6,6), U (N-1,6,6), B (N,6,m) "
                          f"expected, got {tuple(D.shape)}, {tuple(U.shape)}, "
                          f"{tuple(B.shape)}")
+    L, P = segments(N, seg_len)
     if B.device.type == "cpu":
-        return block_tridiag_plain(D, U, B)
+        return block_tridiag_plain(D, U, B, seg_len)
     if any(t.dtype != torch.float32 or t.device != B.device
            for t in (D, U, B)) or m > MAX_RHS:
         raise ValueError("block_tridiag: D, U, B must be float32 on one "
                          f"device, with at most {MAX_RHS} columns")
     D, U, B = D.contiguous(), U.contiguous(), B.contiguous()
+    nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
+    kernels.check(kernels.function(
+        "block_tridiag", "block_tridiag_scratch", _SCRATCH_ARGS)(
+        N, m, L, P, ctypes.addressof(nf), ctypes.addressof(ni)),
+        "block_tridiag scratch")
     X = torch.empty_like(B)
-    work = torch.empty(N * (_FAC + 6 * m), dtype=torch.float32,
-                       device=B.device)
-    piv = torch.empty(N * 6, dtype=torch.int32, device=B.device)
+    work = torch.empty(nf.value, dtype=torch.float32, device=B.device)
+    piv = torch.empty(ni.value, dtype=torch.int32, device=B.device)
     fn = kernels.function("block_tridiag", "block_tridiag_launch",
                           _LAUNCH_ARGS)
     err = fn(D.data_ptr(), U.data_ptr(), B.data_ptr(), X.data_ptr(),
-             work.data_ptr(), piv.data_ptr(), N, m, kernels.stream(B.device))
+             work.data_ptr(), piv.data_ptr(), N, m, L, P,
+             kernels.stream(B.device))
     kernels.check(err, "block_tridiag")
     kernels.LAUNCHES["block_tridiag"] += 1
     return X
 
 
-def launch_geometry(m: int) -> dict:
-    """Threads, dynamic shared memory bytes, registers and local bytes per
-    thread of the (one-block) launch for m right-hand sides."""
-    out = [ctypes.c_int() for _ in range(4)]
+def launch_geometry(N: int, m: int, seg_len: Optional[int] = None) -> dict:
+    """The cooperative launch for N blocks and m right-hand sides: segment
+    length and count, chain depth, grid blocks, threads, dynamic shared
+    memory bytes, registers and local bytes per thread, blocks an SM
+    holds."""
+    L, P = segments(N, seg_len)
+    out = [ctypes.c_int() for _ in range(6)]
     fn = kernels.function("block_tridiag", "block_tridiag_geometry",
-                          [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    kernels.check(fn(m, *(ctypes.addressof(o) for o in out)),
+                          [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6)
+    kernels.check(fn(m, P, *(ctypes.addressof(o) for o in out)),
                   "block_tridiag geometry")
-    return dict(blocks=1, **dict(zip(("threads", "smem", "regs", "local"),
-                                     (o.value for o in out))))
+    return dict(seg_len=L, segments=P, chain_depth=chain_depth(N, L, P),
+                **dict(zip(("blocks", "threads", "smem", "regs", "local",
+                            "per_sm"), (o.value for o in out))))

@@ -7,14 +7,14 @@ One JAX compile in this file: a single jitted program holds every JAX
 result compared here, ``optimize_with_loops`` at N = 24 with 2 loops
 padded to 4, GPS ties on, 3 iterations, among them.
 
-``csrc/block_tridiag.cu`` does not swap rows: it factorises each Dt with a
-row permutation held in registers, stores the factor (eliminated rows,
-multipliers, permutation) in a scratch tensor during the forward sweep and
-reuses it in the backward sweep, where each right-hand-side column walks
-the blocks alone. ``_mirror`` below does exactly that in numpy float32,
-and is held bit for bit to ``block_tridiag_plain`` (which swaps rows and
-refactorises nothing twice in another order of storage) on adversarial
-blocks.
+``csrc/block_tridiag.cu`` solves in segments: each thread block condenses
+one segment's interior onto its end blocks one right-hand-side column a
+thread (every thread factorising the 6x6 itself), block 0 runs the
+separator's block-Thomas, and each column back-substitutes its segment
+alone. ``_mirror`` below does exactly that in numpy float32, and is held
+bit for bit to ``block_tridiag_plain`` (which runs every segment's step
+at once, as batched tensor operations) on adversarial blocks with segment
+ends placed across them.
 """
 
 import jax
@@ -29,7 +29,7 @@ from msf_loam_tpu.slam import posegraph as jpg
 from msf_loam_tpu_torch import interop
 from msf_loam_tpu_torch.config import PoseGraphConfig
 from msf_loam_tpu_torch.core.se3 import Pose, quat_exp, quat_multiply
-from msf_loam_tpu_torch.ops.block_tridiag import block_tridiag_plain
+from msf_loam_tpu_torch.ops.block_tridiag import block_tridiag_plain, segments
 from msf_loam_tpu_torch.slam import posegraph
 
 torch.set_num_threads(1)
@@ -309,71 +309,133 @@ def test_optimize_with_loops_matches_jax(ref):
 
 
 # --------------------------------------------- the kernel's decomposition
-def _mirror(D, U, B):
-    """numpy float32 mirror of csrc/block_tridiag.cu: per-step factor with a
-    register permutation (no row moves), stored and reused by the
-    backward sweep, which runs each column alone."""
+def _mirror(D, U, B, seg_len=None):
+    """numpy float32 mirror of csrc/block_tridiag.cu: each 6x6 factorised
+    in place with selected row swaps (pivot by a tree of pairwise picks) and
+    its multipliers in step order; each segment condensed one right-hand
+    side column ("thread") at a time; the separator's block-Thomas; each
+    interior column back-substituted alone."""
+    f32 = np.float32
     N, m = B.shape[0], B.shape[2]
+    L, P = segments(N, seg_len)
+
+    def better(v, best):
+        return not np.isnan(best) and (np.isnan(v) or v > best)
 
     def factor(A):
-        A = A.copy()
-        F = np.zeros_like(A)
-        perm = list(range(6))
+        a, p = A.astype(f32).copy(), [0] * 6
         for k in range(6):
-            bi, best = k, abs(A[perm[k], k])
+            bv, bx = [abs(a[i, k]) for i in range(k, 6)], list(range(k, 6))
+            for w in (1, 2, 4):
+                for i in range(0, 6 - w, 2 * w):
+                    if i + w < 6 - k and better(bv[i + w], bv[i]):
+                        bv[i], bx[i] = bv[i + w], bx[i + w]
+            bi = p[k] = bx[0]
+            a[[k, bi], k:] = a[[bi, k], k:]
             for i in range(k + 1, 6):
-                v = abs(A[perm[i], k])
-                if not np.isnan(best) and (np.isnan(v) or v > best):
-                    best, bi = v, i
-            perm[k], perm[bi] = perm[bi], perm[k]
-            pk = perm[k]
-            for ii in range(k + 1, 6):
-                pr = perm[ii]
-                f = A[pr, k] / A[pk, k]
-                F[pr, k] = f
+                f = a[i, k] / a[k, k]
+                a[i, k] = f
                 for j in range(k + 1, 6):
-                    A[pr, j] = A[pr, j] - f * A[pk, j]
-        return A, F, perm
+                    a[i, j] = a[i, j] - f * a[k, j]
+        return a, p
 
-    def apply(fac, r):               # r (6, c), physical rows
-        A, F, perm = fac
-        y = [r[perm[i]].copy() for i in range(6)]
+    def apply(fac, y):
+        a, p = fac
+        y = [f32(v) for v in y]
         for k in range(6):
+            y[k], y[p[k]] = y[p[k]], y[k]
             for i in range(k + 1, 6):
-                y[i] = y[i] - F[perm[i], k] * y[k]
+                y[i] = y[i] - a[i, k] * y[k]
         for k in range(5, -1, -1):
-            y[k] = y[k] / A[perm[k], k]
+            y[k] = y[k] / a[k, k]
             for i in range(k):
-                y[i] = y[i] - A[perm[i], k] * y[k]
-        return np.stack(y)
+                y[i] = y[i] - a[i, k] * y[k]
+        return np.array(y, f32)
 
-    def product(Y, C):               # Yᵀ C, k = 0..5 in order
-        acc = Y[0][:, None] * C[0][None, :]
-        for k in range(1, 6):
-            acc = acc + Y[k][:, None] * C[k][None, :]
-        return acc
+    def mv(M, z):                    # M z, k = 0..5 in order
+        out = []
+        for r in range(6):
+            acc = M[r, 0] * z[0]
+            for k in range(1, 6):
+                acc = acc + M[r, k] * z[k]
+            out.append(acc)
+        return np.array(out, f32)
 
-    facs, bt, dt = [], [B[0]], D[0]
-    for i in range(1, N):
-        facs.append(factor(dt))
-        Y = apply(facs[-1], U[i - 1])
-        step = np.concatenate([D[i], B[i]], 1) - product(
-            Y, np.concatenate([U[i - 1], bt[-1]], 1))
-        dt, b = step[:, :6], step[:, 6:]
-        bt.append(b)
+    def mtv(M, z):                   # Mᵀ z
+        return mv(np.ascontiguousarray(M.T), z)
+
+    seg = [(s * L, L if s < P - 1 else N - (P - 1) * L) for s in range(P)]
+    Dg, Ug, Bg, res = [], [], [], []
+    for s, (st, ln) in enumerate(seg):          # condense
+        if ln == 1:
+            Dg, Bg = [D[0].copy()], [B[0].copy()]
+            break
+        S00, S0k, Skk = D[st].copy(), U[st].copy(), D[st + 1].copy()
+        b0, bk = B[st].copy(), B[st + 1].copy()
+        steps = []
+        for k in range(1, ln - 1):
+            g = st + k
+            fac = factor(Skk)
+            steps.append((fac, S0k.copy(), bk.copy()))
+            S0k_n, Skk_n = np.empty_like(S0k), np.empty_like(Skk)
+            for j in range(12 + m):
+                z = S0k[j] if j < 6 else U[g][:, j - 6] if j < 12 \
+                    else bk[:, j - 12]
+                z = apply(fac, z)
+                t = mv(S0k, z)
+                if j < 6:
+                    S00[:, j] = S00[:, j] - t
+                    continue
+                if j < 12:
+                    S0k_n[:, j - 6] = -t
+                else:
+                    b0[:, j - 12] = b0[:, j - 12] - t
+                t = mtv(U[g], z)
+                if j < 12:
+                    Skk_n[:, j - 6] = D[g + 1][:, j - 6] - t
+                else:
+                    bk[:, j - 12] = B[g + 1][:, j - 12] - t
+            S0k, Skk = S0k_n, Skk_n
+        res.append(steps)
+        Dg += [S00, Skk]
+        Bg += [b0, bk]
+        Ug += [S0k] + ([U[st + ln - 1]] if s < P - 1 else [])
+    n = len(Dg)                                  # separator: block-Thomas
+    dt, bts, facs = Dg[0], [Bg[0].copy()], []
+    for i in range(1, n):
+        fac = factor(dt)
+        facs.append(fac)
+        Y = np.stack([apply(fac, Ug[i - 1][:, j]) for j in range(6)], 1)
+        dt_n, bt_n = np.empty_like(dt), np.empty_like(Bg[i])
+        for j in range(6 + m):
+            col = Ug[i - 1][:, j] if j < 6 else bts[-1][:, j - 6]
+            t = mtv(Y, col)
+            if j < 6:
+                dt_n[:, j] = Dg[i][:, j] - t
+            else:
+                bt_n[:, j - 6] = Bg[i][:, j - 6] - t
+        dt = dt_n
+        bts.append(bt_n)
     facs.append(factor(dt))
+    xg = np.zeros((n, 6, m), f32)
+    for c in range(m):
+        x = apply(facs[n - 1], bts[n - 1][:, c])
+        xg[n - 1, :, c] = x
+        for i in range(n - 2, -1, -1):
+            x = apply(facs[i], bts[i][:, c] - mv(Ug[i], x))
+            xg[i, :, c] = x
     X = np.zeros_like(B)
-    for c in range(m):               # one "thread" per column
-        x = None
-        for i in range(N - 1, -1, -1):
-            r = bt[i][:, c:c + 1]
-            if x is not None:
-                acc = U[i][:, 0:1] * x[0]
-                for k in range(1, 6):
-                    acc = acc + U[i][:, k:k + 1] * x[k]
-                r = r - acc
-            x = apply(facs[i], r)
-            X[i, :, c] = x[:, 0]
+    for s, (st, ln) in enumerate(seg):          # back-substitute
+        X[st] = xg[min(2 * s, n - 1)]
+        X[st + ln - 1] = xg[min(2 * s + 1, n - 1)]
+        for c in range(m):
+            x0, x = X[st][:, c], X[st + ln - 1][:, c]
+            for k in range(ln - 2, 0, -1):
+                fac, S0k, bk = res[s][k - 1]
+                y = bk[:, c] - mtv(S0k, x0)
+                y = y - mv(U[st + k], x)
+                x = apply(fac, y)
+                X[st + k, :, c] = x
     return X
 
 
@@ -395,14 +457,18 @@ def _adversarial_blocks(rng, N, case):
 
 
 def _check_mirror(case):
+    """N = 9 under the rule (segments 4 + 5) and with segments of 2 (the
+    last of 3) and of 3: the tied and zero pivots of even blocks fall on
+    segment ends, interiors and separator blocks alike."""
     rng = np.random.default_rng({"random": 1, "ties": 2, "zero_pivot": 3}[case])
     N, m = 9, 4
     D, U = _adversarial_blocks(rng, N, case)
     B = rng.normal(size=(N, 6, m)).astype(np.float32)
-    want = block_tridiag_plain(tp(D), tp(U), tp(B)).numpy()
-    got = _mirror(D, U, B)
-    assert np.isfinite(want).all()
-    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    for seg_len in (None, 2, 3):
+        want = block_tridiag_plain(tp(D), tp(U), tp(B), seg_len).numpy()
+        got = _mirror(D, U, B, seg_len)
+        assert np.isfinite(want).all()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def _check_columns_independent():
