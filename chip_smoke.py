@@ -103,15 +103,8 @@ Phases (any failure raises and exits non-zero before the result line):
    registers, local bytes), the bound, a segment-length sweep, and the
    dense torch.linalg.solve of the assembled 6N x 6N system as the library
    yardstick (median of 3 at N = 1024, one call at N = 8192);
-   (b) apps/run_slam.py's shutdown fusion on the port at full width (its
-   --selftest drive: default config, 16 rings x 1800 points, keyframes
-   every loop_keyframe_stride frames): the 30-frame out-and-back drive
-   with proximity detection + scan matcher (>= 1 loop edge, ATE < 0.08 m,
-   odo_corr, select_fit and block_tridiag launched by the loop-closure
-   step), scan context + scan matcher and proximity + submap matcher
-   (ATE < 0.08 m), --sim_gps --posegraph (ATE < 0.1 m), and the 25-frame
-   straight drive (0 edges, ATE < 0.08 m); one block_tridiag launch per
-   Gauss-Newton iteration on each;
+   (b) run_slam's five --selftest shutdown fusions, now through the app
+   itself: phase 9(e);
    (c) a graph at KITTI-00 size (4541 poses padded to 8192: a square
    driven twice with a 1e-4 rad yaw bias a pose, GPS every 10th pose with
    U(-5, 5) cm noise, 8 loop factors from ground truth): optimize and
@@ -146,20 +139,68 @@ Phases (any failure raises and exits non-zero before the result line):
    pipeline, frames 4-6 within 1e-5 m of the uninterrupted run; the file
    loads on ``device="cpu"`` too.
 
+9. ingest and the apps: ``python -m msf_loam_tpu_torch.apps.run_slam``'s
+   ``main`` in this process (kernel launches counted around each run; the
+   (a) and (b) fixtures are written between phases 1 and 2, their scans
+   ray-cast by a pool of host processes that has ended before phase 2):
+   (a) a 20-frame KITTI-format sequence at HDL-64E scale (64 rings x 1800
+   columns, ~115k points a scan, World.corridor(seed=2, size=15.0), 0.1
+   rad/s yaw) with ``--n_rings 64 --eval --sim_gps --posegraph --save_map
+   --pbstream``: the native C++ prefetcher on every frame (the native
+   runtime must build), 1 pick_rounds + 4 odo_corr + 4 select_fit a frame
+   (+1 pick_rounds on frame 0) and posegraph.iterations block_tridiag
+   launches, ATE < 0.1 m, the PLY and pbstream read back; once with
+   ``--profile_dir`` (the Chrome trace names the four kernels; their device
+   time a launch at 64 rings from it) and once without (steady scans/s,
+   the prefetcher's wait a scan, metrics() spans, peak memory); 3 frames
+   again with ``--device cpu`` (mapped poses within 1e-3 of the card's);
+   (b) the NSH-style ROS1 bag of tests/test_nsh_bag.py (230 frames, 16 x
+   900 points, 400 Hz IMU, bz2; built by dataio/nsh_bag.py) with ``--bag --loop_closure --eval
+   --pbstream``: 230 frames through pre-init and LIO frames (1 + 4 + 4
+   launches on every LIO frame), >= 1 loop edge, ATE < 0.12 m, the
+   conversion's seconds;
+   (c) ``--listen`` on a unix socket fed from a thread by
+   ``dataio.stream.stream_bag`` with scripts/stream_producer.py's
+   --selftest scene and pacing (55 frames, 30 static, 0.1 m steps, speed
+   0.2): processed + dropped = sent, the last 4 steps within 0.08 m of
+   ground truth, the final position within 0.3 m; ``--online`` on
+   tests/test_bag.py's 5-frame bag (ATE < 0.08 m, drops printed);
+   (d) evaluate and export_viz on (a)'s outputs, calib_lidar_imu on the
+   card on tests/test_apps.py's 3-axis scene written as a pbstream
+   (converged, |q . q_true| > 0.999, q within 1e-5 of a ``--device cpu``
+   run; (b)'s planar walk printed, not gated),
+   kitti_to_bag on (a)'s sequence, rosbag_to_npz on (b)'s bag;
+   (e) the five --selftest shutdown fusions that phase 7(b) drove by
+   hand before: the 30-frame out-and-back drive with proximity detection
+   + scan matcher (>= 1 loop edge, ATE < 0.08 m, odo_corr, select_fit and
+   block_tridiag launched by the loop-closure step), scan context + scan
+   matcher and proximity + submap matcher (ATE < 0.08 m), --sim_gps
+   --posegraph (ATE < 0.1 m), and the 25-frame straight drive (0 edges,
+   ATE < 0.08 m); one block_tridiag launch per Gauss-Newton iteration on
+   each.
+
 Prints, before the last line, a ``{"kernels": [...]}`` JSON line (the
-batched frame's call sites as rows of their own) and the
+launches of pick_rounds, odo_corr, select_fit and block_tridiag are those
+of phase 9(a)'s speed run, knn's those of the knn path; the batched
+frame's call sites as rows of their own) and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Runs only where
 ``torch.cuda.is_available()``; imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
+import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -1756,177 +1797,6 @@ def posegraph_kernel_phase(c, row, system):
     row.library_ms = lib[N]
 
 
-def slam_drive(c, path, n):
-    """run_slam's selftest drive through the port (default config, 16 rings
-    x 1800 points, World.corridor(seed=0, size=12.0)): ``loop`` goes out and
-    back, ``straight`` drifts gently. Returns (trajectory, keyframes,
-    ground truth, GPS times and fixes as run_slam's --sim_gps draws them)."""
-    cfg = c.sim_cfg
-    world = c.synthetic.World.corridor(seed=0, size=12.0)
-    pipe = c.SlamPipeline(cfg, device="cuda")
-    rng = np.random.default_rng(0)
-    keyframes, gt, gps_t, gps_xyz = {}, [], [], []
-    pg_cfg = cfg.posegraph
-    for i in range(n):
-        if path == "loop":
-            fwd = i if i < n // 2 else (n - 1 - i)
-            t, yaw = np.array([0.25 * fwd, 0.0, 0.0]), 0.0
-        else:
-            t, yaw = np.array([0.25 * i, 0.1 * np.sin(0.2 * i), 0.0]), 0.02 * i
-        cy, sy = np.cos(yaw), np.sin(yaw)
-        R = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
-        xyz, ring = c.synthetic.simulate_scan(world, t, R, n_rings=16,
-                                              pts_per_ring=1800, noise=0.004,
-                                              seed=i)
-        img = c.preprocess.preprocess_scan(xyz, ring, cfg.features, 16,
-                                           device=c.dev)
-        pipe.process_ring_image(img, 0.1 * i)
-        idx = len(pipe.results) - 1
-        if idx % pg_cfg.loop_keyframe_stride == 0:
-            keyframes[idx] = pipe.prev_scan
-        gt.append(t)
-        if i % pg_cfg.sim_gps_period == 0:
-            gps_t.append(0.1 * i)
-            gps_xyz.append(t + rng.uniform(-pg_cfg.sim_gps_noise,
-                                           pg_cfg.sim_gps_noise, 3))
-    return pipe.trajectory(), keyframes, np.asarray(gt), gps_t, gps_xyz
-
-
-def close_loops(c, poses, data, traj, keyframes, detector, edge_matcher):
-    """apps/run_slam.py:_close_loops on the port: detect revisits among the
-    keyframes, scan-match each candidate into a loop edge, solve the pose
-    graph with the edges folded in. Returns (result, edges, candidates)."""
-    torch, Pose, cfg = c.torch, c.Pose, c.sim_cfg
-    pgc = cfg.posegraph
-    kf_idx = sorted(keyframes)
-    stride = max(1, pgc.loop_keyframe_stride)
-    gap_kf = max(1, pgc.loop_min_index_gap // stride)
-    T = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                  device=c.dev)
-    guesses = {}
-    if detector == "scan_context":
-        descs = torch.stack([c.sc.compute_descriptor(
-            keyframes[k].full.xyz, keyframes[k].full.mask) for k in kf_idx])
-        triples = c.sc.detect_loops_scan_context(
-            descs.cpu().numpy(), min_index_gap=gap_kf,
-            max_dist=pgc.loop_sc_max_dist, max_loops=pgc.loop_max_count,
-            suppress_gap=max(1, gap_kf // 2),
-            prescreen=0 if len(kf_idx) < 100 else 25, device=c.dev)
-        pairs = [(a, b) for a, b, _ in triples]
-        for a, b, yaw in triples:
-            guesses[(a, b)] = Pose(T(np.zeros(3)), c.se3.quat_exp(
-                T([0.0, 0.0, yaw])))
-    else:
-        pairs = c.lc.detect_loops(
-            traj[kf_idx, 1:4], max_dist=pgc.loop_max_dist,
-            min_index_gap=gap_kf, max_loops=pgc.loop_max_count,
-            suppress_gap=max(1, gap_kf // 2))
-    graph = c.lc.SparsePoseGraph(pad_loops=pgc.loop_max_count)
-    for a, b in pairs:
-        fi, fj = kf_idx[a], kf_idx[b]
-        pose_i = Pose(T(traj[fi, 1:4]), T(traj[fi, 4:8]))
-        pose_j = Pose(T(traj[fj, 1:4]), T(traj[fj, 4:8]))
-        if edge_matcher == "submap":
-            guess = guesses.get((a, b))
-            if guess is None:
-                guess = pose_i.inverse().compose(pose_j)
-            neighbors = []
-            for fn_ in (fi - stride, fi, fi + stride):
-                if fn_ in keyframes:
-                    pose_n = Pose(T(traj[fn_, 1:4]), T(traj[fn_, 4:8]))
-                    neighbors.append((keyframes[fn_],
-                                      pose_i.inverse().compose(pose_n)))
-            rel, ok = c.lc.match_loop_pair_submap(neighbors, keyframes[fj],
-                                                  guess, cfg)
-        else:
-            rel, ok = c.lc.match_loop_pair(keyframes[fi], keyframes[fj],
-                                           pose_i, pose_j, cfg,
-                                           guess=guesses.get((a, b)))
-        if bool(ok):
-            graph.add_edge(c.lc.LoopEdge(fi, fj, rel.t.cpu().numpy(),
-                                         rel.q.cpu().numpy()))
-    out = graph.optimize(poses, data, pgc, n_iters=pgc.iterations)
-    return out, [(e.frame_i, e.frame_j) for e in graph.edges], pairs
-
-
-def shutdown_fusion(c, drive, mode):
-    """run_slam's shutdown pose-graph fusion (apps/run_slam.py:453-487) on a
-    finished drive: loop closure with a detector and an edge matcher, or
-    the sim-GPS pose graph. Returns (summary, launches of the step)."""
-    torch, Pose, pg, kernels = c.torch, c.Pose, c.pg, c.kernels
-    traj, keyframes, gt, gps_t, gps_xyz = drive
-    T = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                  device=c.dev)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    poses = Pose(T(traj[:, 1:4]), T(traj[:, 4:8]))
-    if mode == "sim_gps":
-        g_t, g_xyz = T(gps_t), T(gps_xyz)
-        g_valid = torch.ones(len(gps_t), dtype=torch.bool, device=c.dev)
-    else:                     # placeholder row; invalid, so inert
-        g_t, g_xyz = T(np.zeros(1)), T(np.zeros((1, 3)))
-        g_valid = torch.zeros(1, dtype=torch.bool, device=c.dev)
-    data = pg.build_graph_data(T(traj[:, 0]), poses, g_t, g_xyz, g_valid)
-    n_real = len(traj)
-    poses, data = pg.pad_graph(poses, data, pg.next_bucket(n_real))
-    edges = pairs = None
-    if mode == "sim_gps":
-        out = pg.optimize(poses, data, c.sim_cfg.posegraph,
-                          n_iters=c.sim_cfg.posegraph.iterations)
-    else:
-        out, edges, pairs = close_loops(c, poses, data, traj, keyframes,
-                                        *mode)
-    fused = traj.copy()
-    fused[:, 1:4] = out.poses.t[:n_real].cpu().numpy()
-    fused[:, 4:8] = out.poses.q[:n_real].cpu().numpy()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    gt_rel = gt - gt[0]
-    return dict(ate_before=c.ate_rmse(traj[:, 1:4], gt_rel),
-                ate=c.ate_rmse(fused[:, 1:4], gt_rel),
-                cost=(float(out.initial_cost), float(out.final_cost)),
-                edges=edges, candidates=pairs, wall=wall,
-                finite=bool(np.isfinite(fused).all())), launches
-
-
-def shutdown_fusion_phase(c):
-    """Phase 7(b): the out-and-back drive four ways and the straight drive;
-    returns block_tridiag's launches over the five shutdown steps."""
-    loop = slam_drive(c, "loop", 30)
-    straight = slam_drive(c, "straight", 25)
-    runs = [("out-and-back, proximity + scan matcher", loop,
-             ("proximity", "scan"), 0.08),
-            ("out-and-back, scan context + scan matcher", loop,
-             ("scan_context", "scan"), 0.08),
-            ("out-and-back, proximity + submap matcher", loop,
-             ("proximity", "submap"), 0.08),
-            ("out-and-back, --sim_gps --posegraph", loop, "sim_gps", 0.1),
-            ("straight, proximity + scan matcher", straight,
-             ("proximity", "scan"), 0.08)]
-    total = 0
-    for k, (label, drive, mode, bound) in enumerate(runs):
-        s, launches = shutdown_fusion(c, drive, mode)
-        total += launches["block_tridiag"]
-        say(f"shutdown fusion, {label}: loop candidates (keyframe indices) "
-            f"{s['candidates']}, edges accepted (frames) {s['edges']}; cost {s['cost'][0]:.6g} -> "
-            f"{s['cost'][1]:.6g}; ATE {s['ate_before']:.5f} -> "
-            f"{s['ate']:.5f} m (bound {bound} m); {s['wall']:.2f} s; "
-            f"launches {launches}")
-        if not s["finite"] or s["ate"] >= bound:
-            fail(f"{label}: ATE {s['ate']} m")
-        if launches["block_tridiag"] != c.sim_cfg.posegraph.iterations:
-            fail(f"{label}: {launches['block_tridiag']} block_tridiag "
-                 f"launches, one per GN iteration expected")
-        if k == 0 and (len(s["edges"]) < 1 or launches["odo_corr"] < 1
-                       or launches["select_fit"] < 1):
-            fail(f"{label}: {len(s['edges'])} loop edges, launches "
-                 f"{launches}")
-        if k == 4 and s["edges"]:
-            fail(f"{label}: {s['edges']} loop edges on a drive with no "
-                 f"revisit")
-    return total
-
-
 def kitti_graph_phase(c, prob):
     """Phase 7(c): optimize and optimize_with_loops at KITTI-00 size."""
     torch, pg = c.torch, c.pg
@@ -2009,18 +1879,15 @@ def pg_parity_phase(c):
 
 
 def posegraph_phase(c, row):
-    """Phase 7: pose graph and loop closure; returns block_tridiag's
-    launches on the shutdown-fusion path."""
+    """Phase 7: the pose graph's kernel, a KITTI-size graph and CPU parity
+    (run_slam's shutdown fusions run through the app in phase 9(e))."""
     prob = pg_problem(c, PG_KITTI_N, PG_LOOPS, c.dev)
     system = first_gn_system(c, *prob[1:], c.sim_cfg.posegraph)
     timed("pose graph: block_tridiag",
           lambda: posegraph_kernel_phase(c, row, system))
     del system
-    launches = timed("pose graph: shutdown fusion",
-                     lambda: shutdown_fusion_phase(c))
     timed("pose graph: KITTI-size graph", lambda: kitti_graph_phase(c, prob))
     timed("pose graph: CPU parity", lambda: pg_parity_phase(c))
-    return launches
 
 # ---------------------------------------------- 8. the odometry switches
 def switched(cfg, **odometry):
@@ -2309,6 +2176,531 @@ def switch_phase(c):
     return out
 
 
+# ------------------------------------------------ 9. ingest and the apps
+# outputs of the app runs, under the checkout (.gitignore lists out/)
+APP_DIR = os.path.join("out", "chip_smoke")
+KITTI_FRAMES, NSH_FRAMES = 20, 230
+# scripts/stream_producer.py --selftest --frames 55 --warmup_static 30
+# --step 0.1 --speed 0.2, the scene of tests/test_stream.py:84-134
+STREAM_FRAMES, STREAM_WARMUP, STREAM_STEP, STREAM_SPEED = 55, 30, 0.1, 0.2
+
+
+def app_path(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), APP_DIR,
+                        *parts)
+
+
+# the fixtures phase 9 reads: the 64-ring KITTI-format sequence (HDL-64E
+# density, ~115k points a scan) and the NSH-style ROS1 bag
+# (tests/test_nsh_bag.py's parameters: 230 frames, 16 rings x 900 points,
+# 400 Hz IMU, bz2). A pool of host processes ray-casts their scans after
+# phase 1 and before phase 2, so no fixture work shares the host with a
+# timed run.
+def build_fixtures(c):
+    """Write phase 9's fixtures; sets ``c.kitti64_root`` and
+    ``c.nsh_bag_path``."""
+    c.kitti64_root = app_path("kitti64")
+    c.nsh_bag_path = app_path("nsh", "nsh.bag")
+    os.makedirs(os.path.dirname(c.nsh_bag_path), exist_ok=True)
+    n = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        c.kitti.make_synthetic_kitti_sequence(
+            c.kitti64_root, "00", n_frames=KITTI_FRAMES, n_rings=64,
+            pts_per_ring=1800, yaw_rate=0.1,
+            world=c.synthetic.World.corridor(seed=2, size=15.0), pool=pool)
+        t1 = time.perf_counter()
+        info = c.nsh_bag.build_nsh_bag(c.nsh_bag_path, frames=NSH_FRAMES,
+                                       pool=pool)
+    say(f"fixtures, scans ray-cast by {n} host processes: KITTI-format "
+        f"sequence {t1 - t0:.1f} s, NSH bag {info} "
+        f"{time.perf_counter() - t1:.1f} s")
+
+
+def run_app(c, main, argv, ok=(0,)):
+    """An app's ``main(argv)`` in this process: (summary, launches), the
+    launch counts set to 0 just before and read just after; an exit code
+    outside ``ok`` fails."""
+    out = io.StringIO()
+    c.kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    c.torch.cuda.synchronize()
+    launches = dict(c.kernels.LAUNCHES)
+    if rc not in ok:
+        fail(f"{main.__module__} {' '.join(argv)}: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), launches
+
+
+class AppHooks:
+    """Patches around one run_slam run: the pipeline it makes (each frame
+    timed, with its launches and route) and the KITTI prefetcher's wait per
+    frame."""
+
+    def __init__(self, c):
+        self.c = c
+        self.pipes, self.frames, self.waits, self.seqs = [], [], [], []
+        self.made = None
+        self.saved = []
+
+    def __enter__(self):
+        c, rs = self.c, self.c.run_slam
+        make = rs._make_pipeline
+        ring_images = c.kitti.KittiSequence.ring_images
+        hooks = self
+
+        def make_pipeline(cfg, args):
+            pipe = make(cfg, args)
+            hooks.made = dict(c.kernels.LAUNCHES)
+            hooks.pipes.append(pipe)
+            inner = pipe.process_ring_image
+
+            def frame(img, t):
+                lio = bool(pipe.has_imu and pipe.is_initialized
+                           and pipe._states and pipe.prev_scan is not None)
+                before = dict(c.kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                res = inner(img, t)        # returns host floats: synced
+                hooks.frames.append(dict(
+                    t0=t0, t1=time.perf_counter(), lio=lio,
+                    launches={k: v - before[k]
+                              for k, v in c.kernels.LAUNCHES.items()}))
+                return res
+            pipe.process_ring_image = frame
+            return pipe
+
+        def timed_ring_images(seq, *a, **kw):
+            hooks.seqs.append(seq)
+            gen = ring_images(seq, *a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+                hooks.waits.append(time.perf_counter() - t0)
+                yield item
+
+        self.saved = [(rs, "_make_pipeline", make),
+                      (c.kitti.KittiSequence, "ring_images", ring_images)]
+        rs._make_pipeline = make_pipeline
+        c.kitti.KittiSequence.ring_images = timed_ring_images
+        return self
+
+    def __exit__(self, *exc):
+        restore(self.saved)
+
+    def after_frames(self, launches):
+        """The launches of the run's shutdown step (loop closure, the pose
+        graph), from its total: those after the pipeline was made, less
+        the frames' own."""
+        return {k: v - self.made[k] - sum(f["launches"][k]
+                                          for f in self.frames)
+                for k, v in launches.items()}
+
+    def steady_scans_per_s(self, warm=5, lio_only=False):
+        fr = [f for f in self.frames if f["lio"] or not lio_only]
+        if len(fr) <= warm:
+            return float("nan")
+        return (len(fr) - warm) / sum(f["t1"] - f["t0"] for f in fr[warm:])
+
+
+def trace_kernels(path):
+    """Device time and count of each hand-written kernel in a Chrome trace
+    written by torch.profiler, and the trace's device-busy share."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    out = {}
+    for name, key in DEVICE_KERNEL.items():
+        mine = [e["dur"] for e in kern if key in e.get("name", "")]
+        if mine:
+            out[name] = (sum(mine) / 1e3, len(mine))
+    if not kern:
+        return out, None
+    span = (max(e["ts"] + e["dur"] for e in kern)
+            - min(e["ts"] for e in kern))
+    return out, sum(e["dur"] for e in kern) / span
+
+
+def kitti_app_phase(c):
+    """(a) run_slam --kitti_root on a 20-frame, 64-ring KITTI-format
+    sequence (HDL-64E density, ~115k points a scan): the profiled run
+    (launches, artifacts, trace), the speed run, CPU parity. Returns the
+    speed run's summary, launches and output directory."""
+    root = c.kitti64_root
+    n_pts = np.fromfile(os.path.join(root, "sequences", "00", "velodyne",
+                                     "000000.bin"), np.float32).size // 4
+    say(f"KITTI-format sequence: {KITTI_FRAMES} frames, 64 rings x 1800 "
+        f"columns, World.corridor(seed=2, size=15.0), 0.1 rad/s yaw, "
+        f"{n_pts} points in frame 0")
+    t0 = time.perf_counter()
+    if not c.runtime.available():
+        fail("the native C++ runtime (msf_loam_tpu_torch/runtime) did not "
+             "build on this host")
+    say(f"native runtime built and loaded in {time.perf_counter() - t0:.1f} "
+        f"s: {os.path.relpath(c.runtime.library_path())}")
+    base = ["--kitti_root", root, "--n_rings", "64", "--eval", "--sim_gps",
+            "--posegraph", "--save_map", "--pbstream", "--quiet"]
+    iters = c.MsfLoamConfig().posegraph.iterations
+    want = {"pick_rounds": KITTI_FRAMES + 1, "odo_corr": 4 * KITTI_FRAMES,
+            "select_fit": 4 * KITTI_FRAMES, "knn": 0, "block_tridiag": iters}
+
+    prof_dir = app_path("kitti64_profile")
+    s, launches = run_app(c, c.run_slam.main, base + [
+        "--profile_dir", prof_dir, "--output_dir", app_path("kitti64_a")])
+    trace = os.path.join(prof_dir, "trace.json")
+    t0 = time.perf_counter()
+    dev, busy = trace_kernels(trace)
+    say(f"run_slam --kitti_root ... --profile_dir (profiled): {s}; launches "
+        f"{launches}; trace {os.path.getsize(trace) / 2**20:.1f} MiB, "
+        f"read in {time.perf_counter() - t0:.1f} s, device busy "
+        f"{100 * (busy or 0):.1f}% of the kernels' span")
+    for name, (ms, n) in dev.items():
+        say(f"  trace: {name} {ms:.3f} ms over {n} launches "
+            f"({ms / n:.4f} ms a launch, 64-ring shapes)")
+    missing = [k for k in ("pick_rounds", "odo_corr", "select_fit",
+                           "block_tridiag") if k not in dev]
+    if missing or launches != want:
+        fail(f"64-ring profiled run: kernels {missing} missing from the "
+             f"trace, launches {launches}, expected {want}")
+
+    out = app_path("kitti64_b")
+    torch = c.torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with AppHooks(c) as h:
+        s, launches = run_app(c, c.run_slam.main,
+                              base + ["--output_dir", out])
+    peak = torch.cuda.max_memory_allocated()
+    pipe = h.pipes[0]
+    raw = pipe.trajectory()
+    stages = pipe.metrics()["stages"]
+    waits = np.asarray(h.waits) * 1e3
+    say(f"run_slam --kitti_root --n_rings 64 --eval --sim_gps --posegraph "
+        f"--save_map --pbstream: {s}")
+    say(f"  64-ring app speed: {h.steady_scans_per_s():.2f} scans/s steady "
+        f"state (frames 5-{KITTI_FRAMES - 1}), app summary "
+        f"{s['scans_per_sec']} scans/s over its whole run; ingest "
+        f"(prefetcher wait + copy to the card) median {np.median(waits):.2f}"
+        f" ms, max {waits.max():.2f} ms a scan; peak device memory "
+        f"{peak / 2**20:.1f} MiB; launches {launches}")
+    say("  64-ring frame stages (metrics(), host clock, issue time, mean ms):"
+        + ", ".join(f" {k} {v['mean_ms']:.2f}" for k, v in stages.items()))
+    native = [sq.native for sq in h.seqs]
+    if (s["frames"] != KITTI_FRAMES or not s["ate_rmse_m"] < 0.1
+            or launches != want or native != [True]
+            or len(waits) != KITTI_FRAMES):
+        fail(f"64-ring KITTI app run: summary {s}, launches {launches} "
+             f"(expected {want}), native prefetcher {native} on "
+             f"{len(waits)} frames")
+    ply = c.artifacts.load_ply(os.path.join(out, "msf_loam_cloud.ply"))
+    pb = c.proto.read_pbstream(os.path.join(out, "trajectory.pbstream"))
+    traj = c.artifacts.load_trajectory(os.path.join(out, "trajectory.npz"))
+    if len(ply) != s["map_points"] or not (
+            np.array_equal(pb["translation"], traj["translation"])
+            and np.array_equal(pb["rotation_wxyz"], traj["rotation_wxyz"])):
+        fail("64-ring KITTI app run: PLY or pbstream does not read back")
+    say(f"  artifacts read back: PLY {len(ply)} points, pbstream "
+        f"{len(pb['times'])} poses equal to trajectory.npz")
+
+    t0 = time.perf_counter()
+    cpu_s, _ = run_app(c, c.run_slam.main, [
+        "--kitti_root", root, "--n_rings", "64", "--max_frames", "3",
+        "--quiet", "--device", "cpu", "--output_dir", app_path("kitti64_cpu")])
+    cpu = c.artifacts.load_trajectory(app_path("kitti64_cpu",
+                                               "trajectory.npz"))
+    worst = max(float(np.abs(cpu["translation"] - raw[:3, 1:4]).max()),
+                float(np.abs(cpu["rotation_wxyz"] - raw[:3, 4:8]).max()))
+    say(f"  run_slam --device cpu, 3 frames ({time.perf_counter() - t0:.1f} "
+        f"s): mapped poses vs the card's max |dpose| {worst:.2e} "
+        f"(tolerance 1e-3)")
+    if cpu_s["frames"] != 3 or worst > 1e-3:
+        fail(f"64-ring CPU parity: {worst}")
+    return s, launches, out, root
+
+
+def nsh_app_phase(c):
+    """(b) run_slam --bag on the NSH-style ROS1 bag (tests/test_nsh_bag.py's
+    workflow): bz2 bag -> npz conversion -> pre-init and LIO frames ->
+    loop closure -> ATE."""
+    bag = c.nsh_bag_path
+    conv = {}
+    bag_to_npz = c.rosbag.bag_to_npz
+
+    def timed_conversion(*a, **kw):
+        t = time.perf_counter()
+        counts = bag_to_npz(*a, **kw)
+        conv.update(counts, seconds=time.perf_counter() - t)
+        return counts
+    c.rosbag.bag_to_npz = timed_conversion
+    odir = app_path("nsh_out")
+    shutil.rmtree(odir, ignore_errors=True)
+    try:
+        with AppHooks(c) as h:
+            s, launches = run_app(c, c.run_slam.main, [
+                "--bag", bag, "--loop_closure", "--eval", "--n_rings", "16",
+                "--pbstream", "--quiet", "--output_dir", odir])
+    finally:
+        c.rosbag.bag_to_npz = bag_to_npz
+    lio = [f for f in h.frames if f["lio"]]
+    pre = [f for f in h.frames if not f["lio"]]
+    pre_ms = np.mean([f["t1"] - f["t0"] for f in pre]) * 1e3 if pre else 0
+    per = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0,
+           "block_tridiag": 0}
+    bad = [f["launches"] for f in lio if f["launches"] != per]
+    pre_l = {k: sorted({f["launches"][k] for f in pre}) for k in per}
+    say(f"run_slam --bag nsh.bag --loop_closure --eval --n_rings 16 "
+        f"--pbstream: {s}")
+    say(f"  NSH bag: conversion {conv.get('seconds', float('nan')):.2f} s "
+        f"({ {k: v for k, v in conv.items() if k != 'seconds'} }); "
+        f"{len(pre)} pre-init frames ({pre_ms:.1f} ms each on average, "
+        f"launches a frame {pre_l}), "
+        f"{len(lio)} LIO frames at {h.steady_scans_per_s(lio_only=True):.2f}"
+        f" scans/s steady, launches per post-init frame {per} on "
+        f"{len(lio) - len(bad)} of {len(lio)}; loop-closure step launches "
+        f"{h.after_frames(launches)}; run launches {launches}")
+    if (s["frames"] != NSH_FRAMES or s.get("loop_edges", 0) < 1
+            or not s["ate_rmse_m"] < 0.12 or not pre or not lio or bad
+            or launches["block_tridiag"] != c.MsfLoamConfig().posegraph
+            .iterations):
+        fail(f"NSH bag app run: {s}, {len(pre)} pre-init / {len(lio)} LIO "
+             f"frames, off-count frames {bad[:3]}, launches {launches}")
+    return bag, odir
+
+
+def stream_scene():
+    """scripts/stream_producer.py's --selftest source: the run_slam
+    --selftest corridor, static for the warm-up frames, then moving."""
+    from msf_loam_tpu_torch.dataio import synthetic
+    from msf_loam_tpu_torch.dataio.npz_bag import OdomMsg, ScanMsg
+    world = synthetic.World.corridor(seed=0, size=12.0)
+    msgs = []
+    for i in range(STREAM_FRAMES):
+        j = max(0, i - STREAM_WARMUP)
+        t = np.array([STREAM_STEP * j, 0.1 * np.sin(0.2 * j), 0.0])
+        yaw = 0.02 * j
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        R = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1.0]])
+        xyz, ring = synthetic.simulate_scan(world, t, R, n_rings=16,
+                                            pts_per_ring=1800, noise=0.004,
+                                            seed=i)
+        msgs.append(OdomMsg(time=0.1 * i, t=t.astype(np.float32),
+                            q_wxyz=np.array([1.0, 0, 0, 0], np.float32)))
+        msgs.append(ScanMsg(time=0.1 * i, xyz=xyz.astype(np.float32),
+                            ring=ring.astype(np.int32)))
+    return msgs
+
+
+def stream_gt(tm):
+    j = max(0, int(round(tm / 0.1)) - STREAM_WARMUP)
+    return np.array([STREAM_STEP * j, 0.1 * np.sin(0.2 * j), 0.0])
+
+
+def stream_phase(c):
+    """(c) run_slam --listen fed from a thread by the port's stream_bag at
+    the producer script's pacing, and run_slam --online on
+    tests/test_bag.py's bag."""
+    msgs = stream_scene()
+    sock = app_path("msf.sock")
+    if os.path.exists(sock):
+        os.remove(sock)
+    # a relative path keeps the socket name under the 108-byte limit
+    addr = "unix:" + os.path.relpath(sock)
+    sent = {}
+
+    def produce():
+        sent["n"] = c.stream.stream_bag(types.SimpleNamespace(
+            replay=lambda: iter(msgs)), addr, speed=STREAM_SPEED)
+    th = threading.Thread(target=produce, daemon=True)
+    th.start()
+    odir = app_path("stream_out")
+    try:
+        s, launches = run_app(c, c.run_slam.main, [
+            "--listen", addr, "--eval", "--quiet", "--n_rings", "16",
+            "--output_dir", odir])
+    finally:
+        th.join(timeout=120)
+    n_scans = STREAM_FRAMES
+    traj = c.artifacts.load_trajectory(os.path.join(odir, "trajectory.npz"))
+    times, est = traj["times"], traj["translation"]
+    step_err = max(float(np.abs((est[a] - est[a - 1]) - (
+        stream_gt(times[a]) - stream_gt(times[a - 1]))).max())
+        for a in range(len(times) - 4, len(times)))
+    end_err = float(np.linalg.norm(est[-1] - stream_gt(times[-1])))
+    say(f"run_slam --listen (unix socket, {n_scans} scans paced at speed "
+        f"{STREAM_SPEED}): {s}; sent {sent.get('n')} messages; processed "
+        f"{s['frames']} + dropped {s['dropped_scans']} scans; last 4 steps "
+        f"within {step_err:.4f} m of ground truth (bound 0.08), final "
+        f"position error {end_err:.4f} m (bound 0.3)")
+    if (th.is_alive() or sent.get("n") != 2 * n_scans
+            or s["frames"] + s["dropped_scans"] != n_scans
+            or step_err > 0.08 or end_err >= 0.3):
+        fail(f"stream run: {s}, sent {sent}, step {step_err}, end {end_err}")
+
+    root = app_path("bag5")
+    c.kitti.make_synthetic_kitti_sequence(root, "00", n_frames=5,
+                                          pts_per_ring=1800)
+    bag = os.path.join(root, "seq00.npz")
+    c.npz_bag.bag_from_kitti(root, "00", bag, n_rings=16)
+    s, _ = run_app(c, c.run_slam.main, [
+        "--bag", bag, "--online", "--n_rings", "16", "--eval", "--quiet",
+        "--output_dir", app_path("bag5_out")])
+    say(f"run_slam --bag --online (tests/test_bag.py's 5-frame bag): {s}")
+    if s["frames"] + s["dropped_scans"] != 5 or not s["ate_rmse_m"] < 0.08:
+        fail(f"online run: {s}")
+
+
+def calib_scene(c, path):
+    """tests/test_apps.py:158-207's scene: a 3-axis gyro walk at 200 Hz, the
+    lidar seeing it through a known extrinsic rotation; written as a
+    pbstream. Returns that rotation."""
+    torch, se3 = c.torch, c.se3
+    q_ric = torch.tensor([0.96, 0.15, -0.1, 0.2])
+    q_ric = q_ric / torch.linalg.vector_norm(q_ric)
+    n_frames, imu_hz = 40, 200
+    q_imu = [torch.tensor([1.0, 0.0, 0.0, 0.0])]
+    imu_t, gyr = [], []
+    for k in range((n_frames - 1) * imu_hz // 10):
+        w = np.array([0.6 * np.sin(0.05 * k), 0.4 * np.cos(0.03 * k),
+                      0.5 * np.sin(0.02 * k + 1)])
+        imu_t.append(k / imu_hz)
+        gyr.append(w)
+        q_imu.append(se3.quat_normalize(se3.quat_multiply(
+            q_imu[-1], se3.quat_exp(torch.tensor(w / imu_hz,
+                                                 dtype=torch.float32)))))
+    q_l = np.stack([se3.quat_multiply(se3.quat_multiply(
+        q_ric, q_imu[min(i * imu_hz // 10, len(q_imu) - 1)]),
+        se3.quat_conjugate(q_ric)).numpy() for i in range(n_frames)])
+    c.proto.write_pbstream(path, np.arange(n_frames) * 0.1,
+                           np.zeros((n_frames, 3)), q_l,
+                           {"times": np.asarray(imu_t),
+                            "angular_velocity": np.asarray(gyr)})
+    return q_ric.numpy()
+
+
+def apps_phase(c, kitti_out, kitti_root, nsh_bag, nsh_out, kitti_ate):
+    """(d) evaluate, export_viz, calib_lidar_imu, kitti_to_bag and
+    rosbag_to_npz on (a)'s and (b)'s outputs."""
+    traj = os.path.join(kitti_out, "trajectory.npz")
+    s, _ = run_app(c, c.app_evaluate.main, ["--trajectory", traj,
+                                            "--kitti_root", kitti_root])
+    say(f"evaluate on (a): {s}")
+    # run_slam's ate_rmse_m is the aligned one (as in the JAX package)
+    if s["frames"] != KITTI_FRAMES or \
+            abs(s["ate_rmse_aligned_m"] - kitti_ate) > 1e-4:
+        fail(f"evaluate: {s} against run_slam's ATE {kitti_ate}")
+    html = app_path("viz.html")
+    s, _ = run_app(c, c.app_export_viz.main, [
+        "--trajectory", traj, "--map", os.path.join(kitti_out,
+                                                    "msf_loam_cloud.ply"),
+        "--output", html])
+    say(f"export_viz on (a): {s}, {os.path.getsize(html)} bytes")
+    if s["poses"] != KITTI_FRAMES or not s["map_points"]:
+        fail(f"export_viz: {s}")
+    pbs = app_path("calib.pbstream")
+    q_ric = calib_scene(c, pbs)
+    t0 = time.perf_counter()
+    s, _ = run_app(c, c.app_calib.main, ["--trajectory", pbs])
+    t_card = time.perf_counter() - t0
+    s_cpu, _ = run_app(c, c.app_calib.main, ["--trajectory", pbs,
+                                             "--device", "cpu"])
+    dot = abs(float(np.asarray(s["q_ric_wxyz"]) @ q_ric))
+    dq = float(np.abs(np.asarray(s["q_ric_wxyz"])
+                      - np.asarray(s_cpu["q_ric_wxyz"])).max())
+    nsh_pb = os.path.join(nsh_out, "trajectory.pbstream")
+    s2, _ = run_app(c, c.app_calib.main, ["--trajectory", nsh_pb],
+                    ok=(0, 1))
+    say(f"calib_lidar_imu on the card ({t_card:.2f} s) on tests/test_apps.py"
+        f"'s 3-axis scene (pbstream): {s}, |q . q_true| {dot:.6f} (bound "
+        f"0.999); --device cpu: {s_cpu}, max |dq| {dq:.2e} (tolerance "
+        f"1e-5); on (b)'s pbstream (a planar walk, yaw only: degenerate, not "
+        f"gated): {s2}")
+    if not s["converged"] or dot <= 0.999 or dq > 1e-5 \
+            or s_cpu["n_pairs"] != s["n_pairs"]:
+        fail(f"calib_lidar_imu: {s} on the card, {s_cpu} on the CPU")
+    s, _ = run_app(c, c.app_kitti_to_bag.main, [
+        "--kitti_root", kitti_root, "--output", app_path("k2b.npz"),
+        "--imu_rate", "100", "--max_frames", "5"])
+    s2, _ = run_app(c, c.app_rosbag_to_npz.main,
+                    [nsh_bag, app_path("nsh.npz")])
+    say(f"kitti_to_bag on (a): {s}; rosbag_to_npz on (b): {s2}")
+    if s["scans"] != 5 or s2["scan"] != NSH_FRAMES or s2["odom"] != NSH_FRAMES:
+        fail(f"kitti_to_bag {s}, rosbag_to_npz {s2}")
+
+
+def selftest_gt(path, n):
+    out = []
+    for i in range(n):
+        if path == "loop":
+            fwd = i if i < n // 2 else (n - 1 - i)
+            out.append([0.25 * fwd, 0.0, 0.0])
+        else:
+            out.append([0.25 * i, 0.1 * np.sin(0.2 * i), 0.0])
+    return np.asarray(out)
+
+
+def fusion_phase(c):
+    """(e) run_slam --selftest's shutdown fusions (phase 7(b) before they
+    ran through the app): the 30-frame out-and-back drive with proximity +
+    scan matcher, scan context + scan matcher, proximity + submap matcher,
+    --sim_gps --posegraph, and the 25-frame straight drive. Returns
+    block_tridiag's launches over the five."""
+    iters = c.MsfLoamConfig().posegraph.iterations
+    runs = [("out-and-back, proximity + scan matcher", "loop", 30,
+             ["--loop_closure"], 0.08),
+            ("out-and-back, scan context + scan matcher", "loop", 30,
+             ["--loop_closure", "--loop_detector", "scan_context"], 0.08),
+            ("out-and-back, proximity + submap matcher", "loop", 30,
+             ["--loop_closure", "--loop_edge_matcher", "submap"], 0.08),
+            ("out-and-back, --sim_gps --posegraph", "loop", 30,
+             ["--sim_gps", "--posegraph"], 0.1),
+            ("straight, proximity + scan matcher", "line", 25,
+             ["--loop_closure"], 0.08)]
+    total = 0
+    for k, (label, path, n, flags, bound) in enumerate(runs):
+        t0 = time.perf_counter()
+        with AppHooks(c) as h:
+            s, launches = run_app(c, c.run_slam.main, [
+                "--selftest", "--selftest_path", path, "--selftest_frames",
+                str(n), "--eval", "--quiet", *flags,
+                "--output_dir", app_path(f"fusion{k}")])
+        step = h.after_frames(launches)
+        gt = selftest_gt(path, n)
+        before = c.ate_rmse(h.pipes[0].trajectory()[:, 1:4], gt - gt[0])
+        total += launches["block_tridiag"]
+        say(f"run_slam --selftest, {label}: {s}; ATE before fusion "
+            f"{before:.5f} m (bound after {bound} m); {time.perf_counter() - t0:.1f}"
+            f" s; run launches {launches}, shutdown step {step}")
+        if not s["ate_rmse_m"] < bound or launches["block_tridiag"] != iters:
+            fail(f"{label}: {s}, launches {launches}")
+        if k == 0 and (s["loop_edges"] < 1 or not all(
+                step[x] >= 1
+                for x in ("odo_corr", "select_fit", "block_tridiag"))):
+            fail(f"{label}: {s}, loop-closure step launches "
+                 f"{step}")
+        if k == 4 and s["loop_edges"]:
+            fail(f"{label}: {s['loop_edges']} loop edges on a drive with no "
+                 f"revisit")
+    return total
+
+
+def app_phase(c):
+    """Phase 9; returns the 64-ring KITTI app run's launches and
+    block_tridiag's launches over the shutdown fusions."""
+    s, launches, kitti_out, kitti_root = timed(
+        "apps: 64-ring KITTI-format run_slam", lambda: kitti_app_phase(c))
+    nsh_bag, nsh_out = timed("apps: NSH ROS1 bag run_slam",
+                             lambda: nsh_app_phase(c))
+    timed("apps: --listen and --online", lambda: stream_phase(c))
+    timed("apps: evaluate, export_viz, calib, converters",
+          lambda: apps_phase(c, kitti_out, kitti_root, nsh_bag, nsh_out,
+                             s["ate_rmse_m"]))
+    fusions = timed("apps: shutdown fusions", lambda: fusion_phase(c))
+    return launches, fusions
+
+
 # ----------------------------------------------------------------- main
 def setup(torch):
     """Import the port, print the card, build the kernels (phase 1) and
@@ -2338,6 +2730,12 @@ def setup(torch):
     from msf_loam_tpu_torch.slam import posegraph as pg
     from msf_loam_tpu_torch.slam import scan_context as sc
     from msf_loam_tpu_torch.slam.pipeline import SlamPipeline, ate_rmse
+    from msf_loam_tpu_torch import proto, runtime
+    from msf_loam_tpu_torch.apps import (calib_lidar_imu, evaluate,
+                                         export_viz, kitti_to_bag,
+                                         rosbag_to_npz, run_slam)
+    from msf_loam_tpu_torch.dataio import (artifacts, kitti, npz_bag,
+                                           nsh_bag, rosbag, stream)
 
     c = types.SimpleNamespace(
         torch=torch, kernels=kernels, FeatureConfig=FeatureConfig,
@@ -2350,7 +2748,12 @@ def setup(torch):
         odometry=odometry, pipe_mod=pipe_mod, vm=vm,
         SlamPipeline=SlamPipeline, ate_rmse=ate_rmse, bp=bp,
         RingImage=RingImage, bt=bt, pg=pg, sc=sc, lc=lc, se3=se3,
-        Pose=se3.Pose, dev=torch.device("cuda"))
+        Pose=se3.Pose, dev=torch.device("cuda"), proto=proto,
+        runtime=runtime, run_slam=run_slam, app_evaluate=evaluate,
+        app_export_viz=export_viz, app_calib=calib_lidar_imu,
+        app_kitti_to_bag=kitti_to_bag, app_rosbag_to_npz=rosbag_to_npz,
+        artifacts=artifacts, kitti=kitti, npz_bag=npz_bag, nsh_bag=nsh_bag,
+        rosbag=rosbag, stream=stream)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -2412,7 +2815,12 @@ def main():
         return 1
     t_start = time.perf_counter()
     c = setup(torch)
-    kernels, card = c.kernels, CARD
+    timed("fixtures", lambda: build_fixtures(c))
+    return run_phases(c, t_start)
+
+
+def run_phases(c, t_start):
+    torch, kernels, card = c.torch, c.kernels, CARD
     # ---- 2. kernels against their plain versions
     rows, batch_rows = {}, {}
     say("kernels against their plain versions:")
@@ -2433,20 +2841,23 @@ def main():
     batch_launches = timed("batched path", lambda: batch_path_phase(c))
     # ---- 7. pose graph and loop closure
     rows["block_tridiag"] = Row()
-    pg_launches = timed("pose graph and loop closure",
-                        lambda: posegraph_phase(c, rows["block_tridiag"]))
+    timed("pose graph and loop closure",
+          lambda: posegraph_phase(c, rows["block_tridiag"]))
     # ---- 8. the odometry switches, checkpoint, stage timers
     switch_launches = timed("odometry switches", lambda: switch_phase(c))
+    # ---- 9. ingest and the apps: the main path, run_slam
+    app_launches, fusion_launches = timed("ingest and the apps",
+                                          lambda: app_phase(c))
 
-    launches = dict(lio_launches, knn=knn_launches,
-                    block_tridiag=pg_launches)
-    say(f"launches: LIO speed run {lio_launches}, lidar speed run "
+    launches = dict(app_launches, knn=knn_launches)
+    say(f"launches: 64-ring KITTI-format run_slam (the main path) "
+          f"{app_launches}, LIO speed run {lio_launches}, lidar speed run "
           f"{lidar_launches}, knn path {knn_launches}, batched B={BATCH_B} "
-          f"speed run {batch_launches}, block_tridiag on the shutdown "
-          f"fusions {pg_launches}; per frame with the switches: lidar "
-          f"motion_deskew {switch_launches['lidar'][1]}, deskew + triangle "
-          f"{switch_launches['matcher'][1]}, batched motion_deskew "
-          f"{switch_launches['batched'][1]}")
+          f"speed run {batch_launches}, block_tridiag on run_slam's five "
+          f"--selftest shutdown fusions {fusion_launches}; per frame with "
+          f"the switches: lidar motion_deskew {switch_launches['lidar'][1]}, "
+          f"deskew + triangle {switch_launches['matcher'][1]}, batched "
+          f"motion_deskew {switch_launches['batched'][1]}")
 
     def entry(name, label, o, n):
         if n <= 0:

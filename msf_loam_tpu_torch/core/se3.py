@@ -78,6 +78,46 @@ def quat_to_matrix(q: Tensor) -> Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: Tensor) -> Tensor:
+    """3x3 rotation matrix -> quaternion [w, x, y, z], batched: Shepperd's
+    four candidates, the one with the largest pivot taken (first on ties,
+    as ``jnp.argmax``)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10,
+                      m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22,
+                      m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                          1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+                         dim=-1)
+    case = torch.argmax(pivots, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)            # (..., 4, 4)
+    idx = case[..., None, None].expand(case.shape + (1, 4))
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    return q / torch.clamp(_norm_fma(q), min=1e-12)
+
+
+def _norm_fma(q: Tensor) -> Tensor:
+    """|q| over the last axis rounded as the JAX package's compiled
+    ``jnp.linalg.norm`` rounds it: XLA contracts the sum of squares into a
+    chain of float32 fused multiply-adds, emulated here in float64 (each
+    product is exact there; the sum is rounded to float32 at every step).
+    The square root is taken in float64 too and rounded once (torch's
+    float32 CPU square root is not always correctly rounded). Keeps the
+    quaternions of written fixtures bit-equal to the JAX package's."""
+    s = q[..., 0:1] * q[..., 0:1]
+    wide = q.double()
+    for j in range(1, q.shape[-1]):
+        s = (wide[..., j:j + 1] * wide[..., j:j + 1] + s.double()).to(q.dtype)
+    return torch.sqrt(s.double()).to(q.dtype)
+
+
 def quat_exp(theta: Tensor) -> Tensor:
     """so(3) tangent -> unit quaternion exp([0, theta/2]), with the Taylor
     fallback of the reference's ``Utility::deltaQ`` for small angles."""
@@ -90,6 +130,20 @@ def quat_exp(theta: Tensor) -> Tensor:
                             torch.sin(half) / angle)
     w = torch.where(small, 1.0 - sq / 8.0 + sq * sq / 384.0, torch.cos(half))
     return torch.cat([w, sinc_half * theta], dim=-1)
+
+
+def quat_log(q: Tensor) -> Tensor:
+    """Unit quaternion -> so(3) tangent (inverse of quat_exp), the short
+    way around."""
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    w = torch.clamp(q[..., 0:1], -1.0, 1.0)
+    vsq = torch.sum(q[..., 1:4] ** 2, dim=-1, keepdim=True)
+    small = vsq < 1e-18
+    vnorm = torch.sqrt(torch.where(small, torch.ones_like(vsq), vsq))
+    angle = 2.0 * torch.atan2(vnorm, w)
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-12),
+                        angle / vnorm)
+    return scale * q[..., 1:4]
 
 
 def quat_slerp(q0: Tensor, q1: Tensor, s: Tensor) -> Tensor:
@@ -108,6 +162,22 @@ def quat_slerp(q0: Tensor, q1: Tensor, s: Tensor) -> Tensor:
     w0 = torch.where(near, 1.0 - s, torch.sin((1.0 - s) * theta) / den)
     w1 = torch.where(near, s, torch.sin(s * theta) / den)
     return quat_normalize(w0 * q0 + w1 * q1)
+
+
+def quat_from_two_vectors(a: Tensor, b: Tensor) -> Tensor:
+    """Shortest-arc quaternion rotating a onto b (Eigen FromTwoVectors);
+    antiparallel vectors rotate pi about an axis orthogonal to a. The norms
+    round as the JAX package's compiled ones (``_norm_fma``)."""
+    a = a / torch.clamp(_norm_fma(a), min=1e-12)
+    b = b / torch.clamp(_norm_fma(b), min=1e-12)
+    c = cross(a, b)
+    w = 1.0 + torch.sum(a * b, dim=-1, keepdim=True)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    ortho = cross(a, torch.where(torch.abs(a[..., 0:1]) < 0.9, ex, ey))
+    q = torch.where(w < 1e-8, torch.cat([torch.zeros_like(w), ortho], -1),
+                    torch.cat([w, c], dim=-1))
+    return q / torch.clamp(_norm_fma(q), min=1e-12)
 
 
 def skew(v: Tensor) -> Tensor:

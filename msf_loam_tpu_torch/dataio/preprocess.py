@@ -79,3 +79,15 @@ def preprocess_scan(xyz: np.ndarray, ring: np.ndarray, cfg: FeatureConfig,
     planes = build_ring_image_np(xyz, ring, rel_time, num_rings,
                                  cfg.max_points_per_ring)
     return RingImage(*(torch.from_numpy(a).to(device) for a in planes))
+
+
+def infer_rings_from_elevation(xyz: np.ndarray, num_rings: int = 64,
+                               fov_up: float = 2.0,
+                               fov_down: float = -24.8) -> np.ndarray:
+    """Ring index from elevation angle for datasets without a ring field
+    (KITTI HDL-64E: +2 .. -24.8 degrees)."""
+    d = np.linalg.norm(xyz[:, :2], axis=1)
+    elev = np.degrees(np.arctan2(xyz[:, 2], d))
+    frac = (fov_up - elev) / (fov_up - fov_down)
+    ring = np.clip(np.round(frac * (num_rings - 1)), 0, num_rings - 1)
+    return ring.astype(np.int32)

@@ -103,6 +103,15 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     root = pathlib.Path(msf_loam_tpu_torch.__file__).parent
     files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert len(files) >= 15
+    # the ingest and the apps are among them
+    names = {str(p.relative_to(root)) for p in files[:-1]}
+    for mod in ("dataio/artifacts", "dataio/validation", "runtime/__init__",
+                "dataio/kitti", "dataio/npz_bag", "dataio/rosbag",
+                "dataio/stream", "proto/__init__", "dataio/nsh_bag",
+                "apps/run_slam", "apps/evaluate", "apps/export_viz",
+                "apps/viz_stream", "apps/kitti_to_bag", "apps/rosbag_to_npz",
+                "imu/extrinsic_calib", "apps/calib_lidar_imu"):
+        assert f"{mod}.py" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
