@@ -179,9 +179,43 @@ Phases (any failure raises and exits non-zero before the result line):
    ATE < 0.08 m); one block_tridiag launch per Gauss-Newton iteration on
    each.
 
+10. the distribution layer (``msf_loam_tpu_torch/parallel``): a
+   ``torch.distributed`` world, collectives counted per frame and per
+   Gauss-Newton iteration (``parallel.mesh.COLLECTIVES``):
+   (a) world size 1 over NCCL, ``ShardedSlamPipeline`` at full width (the
+   lidar configuration above): the 10-frame corridor drive (ATE < 0.05 m),
+   poses within 5e-3 of ``SlamPipeline`` on the same association path
+   (``reuse_candidates=False``; the cached-candidate frame's distance
+   printed), 3 frames again on the CPU over gloo (within 1e-3), 20
+   distinct bench frames with scans/s beside both dense frames', launches
+   exact (1 pick_rounds + 4 odo_corr + 2 select_fit a frame: the
+   mapping's fits are plain PyTorch on the per-round path) and 15
+   all-reduces + 2 all-gathers a frame, a profile of 3 frames with the
+   collectives' device time;
+   (b) world size 2 on the one card: two processes on cuda:0 over gloo
+   (NCCL refuses two ranks on one GPU; a check of the logic with the
+   kernels on the card, not a speed figure), the drive of (a): ranks
+   bit-equal on every pose, within 5e-3 m of (a) and of the dense frame,
+   the shards' points (both maps) summing to the dense maps' within 0.5%;
+   (c) ``sharded_lio_frame`` at world 1 on phase 5's distorted LIO drive,
+   tight coupling, 9 frames: ATE < 0.15 m, 1 + 4 + 2 launches and 15 + 2
+   collectives on every post-init frame;
+   (d) ``block_tridiag_condense`` and ``block_tridiag_backsub`` (the split
+   launches of the distributed solve) bit-equal to their plain versions on
+   seeded systems and phase 7(c)'s first GN system, timed;
+   ``optimize_with_loops_distributed`` on phase 7(c)'s KITTI-size graph at
+   world 1 and world 2 (gloo, as (b)): poses within 1e-3 of
+   ``optimize_with_loops``, 3 launches (condense, the separator's
+   block_tridiag, back-substitute) and 2 all-gathers + 1 all-reduce a GN
+   iteration, wall time;
+   (e) ``run_slam --map_shards 1 --eval`` on phase 9(a)'s sequence (ATE <
+   0.1 m, 1 + 4 + 2 launches a frame), a sharded checkpoint at world 1
+   resumed within 1e-5 m, ``bench_scaling --pipeline`` at world 1.
+
 Prints, before the last line, a ``{"kernels": [...]}`` JSON line (the
 launches of pick_rounds, odo_corr, select_fit and block_tridiag are those
-of phase 9(a)'s speed run, knn's those of the knn path; the batched
+of phase 9(a)'s speed run, knn's those of the knn path, the condense and
+back-substitute launches those of phase 10(d)'s world-1 run; the batched
 frame's call sites as rows of their own) and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Runs only where
@@ -224,14 +258,23 @@ REPLACES = {
     "block_tridiag": "msf_loam_tpu/slam/posegraph.py:475 solve_block_tridiag "
                      "(lax.scan; decomposition of "
                      "msf_loam_tpu/parallel/distributed_ba.py)",
+    "block_tridiag_condense": "msf_loam_tpu/parallel/distributed_ba.py:30 "
+                              "_condense_chain (lax.scan)",
+    "block_tridiag_backsub": "msf_loam_tpu/parallel/distributed_ba.py:74 "
+                             "_backsub_chain (lax.scan)",
 }
 DEVICE_KERNEL = {"pick_rounds": "pick_rounds_kernel",
                  "odo_corr": "odo_corr_kernel",
                  "select_fit": "select_fit_kernel", "knn": "knn_",
-                 "block_tridiag": "block_tridiag_kernel"}
+                 "block_tridiag": "block_tridiag_kernel",
+                 "block_tridiag_condense": "block_tridiag_condense_kernel",
+                 "block_tridiag_backsub": "block_tridiag_backsub_kernel"}
 
 
 CARD = "nvidia-smi unavailable"   # name, power limit; set by main()
+# block_tridiag's split launches (the distributed solve), counted apart
+SPLIT = ("block_tridiag_condense", "block_tridiag_backsub")
+SPLIT_ZERO = {k: 0 for k in SPLIT}
 
 
 def fail(msg):
@@ -1123,7 +1166,7 @@ def lidar_path_phase(c):
     peak = torch.cuda.max_memory_allocated()
     steady = (n_frames - warm) / (stamps[-1] - stamps[warm - 1])
     want = {"pick_rounds": n_frames + 1, "odo_corr": 4 * n_frames,
-            "select_fit": 4 * n_frames, "knn": 0, "block_tridiag": 0}
+            "select_fit": 4 * n_frames, "knn": 0, "block_tridiag": 0, **SPLIT_ZERO}
     say(f"lidar speed: {steady:.2f} scans/s steady state (frames {warm}-"
           f"{n_frames - 1}), first frame {stamps[0] - t_run:.3f} s;"
           f" peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
@@ -1279,7 +1322,7 @@ def lio_speed_phase(c):
         fail("LIO speed run never initialised")
     first = init_at + 1                       # first post-init (fused) frame
     want = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0,
-            "block_tridiag": 0}
+            "block_tridiag": 0, **SPLIT_ZERO}
     bad = [i for i in range(first, n) if per_frame[i] != want]
     if bad:
         fail(f"LIO post-init frames {bad} launched {per_frame[bad[0]]}, "
@@ -1502,7 +1545,7 @@ def batch_speed(c, B, bench_imgs):
     peak = torch.cuda.max_memory_allocated()
     # init_batch_state extracts the empty previous scan: one pick_rounds
     want = {"pick_rounds": T + 1, "odo_corr": 4 * T, "select_fit": 4 * T,
-            "knn": 0, "block_tridiag": 0}
+            "knn": 0, "block_tridiag": 0, **SPLIT_ZERO}
     if launches != want:
         fail(f"batched B={B}: launches {launches}, expected {want} (1 "
              f"pick_rounds + 4 odo_corr + 4 select_fit a frame, one "
@@ -2345,7 +2388,7 @@ def kitti_app_phase(c):
             "--posegraph", "--save_map", "--pbstream", "--quiet"]
     iters = c.MsfLoamConfig().posegraph.iterations
     want = {"pick_rounds": KITTI_FRAMES + 1, "odo_corr": 4 * KITTI_FRAMES,
-            "select_fit": 4 * KITTI_FRAMES, "knn": 0, "block_tridiag": iters}
+            "select_fit": 4 * KITTI_FRAMES, "knn": 0, "block_tridiag": iters, **SPLIT_ZERO}
 
     prof_dir = app_path("kitti64_profile")
     s, launches = run_app(c, c.run_slam.main, base + [
@@ -2448,7 +2491,7 @@ def nsh_app_phase(c):
     pre = [f for f in h.frames if not f["lio"]]
     pre_ms = np.mean([f["t1"] - f["t0"] for f in pre]) * 1e3 if pre else 0
     per = {"pick_rounds": 1, "odo_corr": 4, "select_fit": 4, "knn": 0,
-           "block_tridiag": 0}
+           "block_tridiag": 0, **SPLIT_ZERO}
     bad = [f["launches"] for f in lio if f["launches"] != per]
     pre_l = {k: sorted({f["launches"][k] for f in pre}) for k in per}
     say(f"run_slam --bag nsh.bag --loop_closure --eval --n_rings 16 "
@@ -2701,10 +2744,559 @@ def app_phase(c):
     return launches, fusions
 
 
+# ------------------------------------------------ 10. the distribution layer
+DIST_FRAMES = 10                    # (a) accuracy and (b) world-2 drives
+DIST_JOIN_S = 600                   # the world-2 children, together
+# collectives a lidar frame of the sharded pipeline (2 odometry rounds of
+# 6 GN iterations): 2 x (1 + 6) all-reduces, the map sizes' all-reduce,
+# one all-gather per mapping round (2 rounds)
+DIST_FRAME_COLLECTIVES = {"all_reduce": 15, "all_gather": 2}
+# a Gauss-Newton iteration of optimize_with_loops_distributed: the
+# separator gather, the capacitance all-reduce, the solution gather
+DIST_PG_COLLECTIVES = {"all_reduce": 1, "all_gather": 2}
+DIST_PG_LAUNCHES = {"block_tridiag_condense": 1, "block_tridiag": 1,
+                    "block_tridiag_backsub": 1}
+
+
+def per_round(cfg):
+    """``cfg`` on the per-round association path (the sharded hooks')."""
+    import dataclasses
+    return dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, reuse_candidates=False))
+
+
+def nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def split_work(bt, N, m):
+    """(bytes, float operations) of block_tridiag's condense launch and of
+    its back-substitute launch, split as tridiag_work counts the one-launch
+    solve: the condense launch reads D, U, B once and writes each interior
+    step's residues (factor, S0k, bk, pivots) and the separator chain; the
+    back-substitute launch reads the residues, U and the solved separators
+    and writes X."""
+    L, P = bt.segments(N)
+    factor = sum((5 - k) + 2 * (5 - k) ** 2 for k in range(6))
+    solve_col = 2 * 15 + 6 + 2 * 15
+    interior = max(N - 2 * P, 0)
+    res = 4 * interior * (36 + 36 + 6 * m + 6)
+    chain = 4 * 2 * P * (36 + 36 + 6 * m)
+    c_bytes = 4 * (36 * N + 36 * (N - 1) + 6 * m * N) + res + chain
+    c_ops = interior * (factor + (12 + m) * solve_col + 12 * 6 * (12 + m)
+                        + 12 * 6 * (6 + m))
+    b_bytes = res + 4 * (36 * (N - 1) + 2 * P * 6 * m + 6 * m * N)
+    b_ops = interior * m * (2 * 12 * 6 + solve_col)
+    return (c_bytes, c_ops), (b_bytes, b_ops)
+
+
+def profile_collectives(torch, run, label):
+    """A torch.profiler trace of ``run``: device busy, and the device time
+    a collective (NCCL kernels), beside profile_frames' summary."""
+    prof = profile_frames(torch, run, label)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        run()
+        torch.cuda.synchronize()
+    nccl = [e for e in device_events(p) if "nccl" in e.key.lower()]
+    us, n = sum(self_dev_us(e) for e in nccl), sum(e.count for e in nccl)
+    host = [e for e in p.key_averages() if e.key.startswith("c10d::")
+            or "nccl:" in e.key]
+    say(f"  collectives in the trace of {label}: device {us / 1e3:.3f} ms "
+        f"over {n} NCCL kernels ({us / max(n, 1):.1f} us each); host ops "
+        + ", ".join(f"{e.key} {e.count}x {e.cpu_time_total / max(e.count, 1):.1f}"
+                    f" us" for e in host[:6]))
+    return prof, us, n
+
+
+def dist_namespace(c):
+    """The distribution modules, on ``c``."""
+    from msf_loam_tpu_torch.apps import bench_scaling
+    from msf_loam_tpu_torch.parallel import distributed_ba, runtime
+    from msf_loam_tpu_torch.parallel import mesh as mesh_mod
+    from msf_loam_tpu_torch.parallel import sharded_map, sharded_pipeline
+    from msf_loam_tpu_torch.slam import checkpoint
+    c.runtime_pg, c.mesh_mod, c.sharded_map = runtime, mesh_mod, sharded_map
+    c.sp = sharded_pipeline
+    c.dba, c.checkpoint, c.bench_scaling = distributed_ba, checkpoint, \
+        bench_scaling
+    return c
+
+
+def sharded_drive(c, mesh, cfg, imgs, stamps=None):
+    """The sharded pipeline over ``imgs``; returns it."""
+    pipe = c.sp.ShardedSlamPipeline(cfg, mesh)
+    for i, img in enumerate(imgs):
+        pipe.process_ring_image(img, 0.1 * i)      # returns host floats
+        if stamps is not None:
+            stamps.append(time.perf_counter())
+    return pipe
+
+
+def dist_world1_phase(c):
+    """(a) The sharded pipeline at world size 1 over NCCL, full width."""
+    torch, kernels, mm = c.torch, c.kernels, c.mesh_mod
+    mesh = mm.make_mesh(n_map=1)
+    say(f"distribution (a): world {mesh.world_size} over {mesh.backend} on "
+        f"{mesh.device}, mesh (data, map) = ({mesh.n_data}, {mesh.n_map})")
+    world = c.synthetic.World.corridor(seed=0, size=12.0)
+    drive = corridor_drive(DIST_FRAMES)
+    imgs = images(c.synthetic, c.preprocess, c.cfg.features, world, drive,
+                  0.005, lambda i: 3, c.dev)
+    pipe = sharded_drive(c, mesh, c.cfg, imgs)
+    traj = pipe.trajectory()
+    gt = np.asarray([t for t, _ in drive])
+    ate = c.ate_rmse(traj[:, 1:4], gt, align=False)
+    dense = c.SlamPipeline(per_round(c.cfg), device="cuda")
+    cached = c.SlamPipeline(c.cfg, device="cuda")
+    for i, img in enumerate(imgs):
+        dense.process_ring_image(img, 0.1 * i)
+        cached.process_ring_image(img, 0.1 * i)
+    d_dense = float(np.abs(traj[:, 1:8] - dense.trajectory()[:, 1:8]).max())
+    d_cached = float(np.abs(traj[:, 1:4] - cached.trajectory()[:, 1:4]).max())
+    pts = pipe.map_points()
+    say(f"distribution (a) accuracy: ATE {ate:.5f} m over {DIST_FRAMES} "
+        f"corridor frames (bound 0.05 m); max |dpose| against the dense "
+        f"frame on the same path (reuse_candidates=False) {d_dense:.2e} "
+        f"(bound 5e-3); against the dense cached-candidate frame "
+        f"{d_cached:.2e} m (not gated: another association); map points "
+        f"{pts.tolist()} (dense {int(dense.corner_map.count.sum())}, "
+        f"{int(dense.surf_map.count.sum())})")
+    if not ate < 0.05 or d_dense > 5e-3:
+        fail(f"sharded world 1: ATE {ate}, |dpose| to dense {d_dense}")
+    c.dist_ref = dict(traj=traj, dense=dense.trajectory(), points=pts,
+                      dense_points=(int(dense.corner_map.count.sum()),
+                                    int(dense.surf_map.count.sum())))
+
+    # the plain versions on the CPU, over gloo, from the same frames
+    gloo = torch.distributed.new_group([0], backend="gloo")
+    cmesh = mm.make_mesh(n_map=1, group=gloo, device="cpu")
+    cpu = sharded_drive(c, cmesh, c.cfg, [im.to("cpu") for im in imgs[:3]])
+    worst = float(np.abs(cpu.trajectory()[:, 1:8] - traj[:3, 1:8]).max())
+    say(f"distribution (a) cpu plain versions (gloo) vs card, 3 frames: max "
+        f"|dpose| {worst:.2e} (tolerance 1e-3)")
+    if worst > 1e-3:
+        fail(f"sharded CPU and card poses differ by {worst}")
+
+    n = LIDAR_FRAMES
+    bench = images(c.synthetic, c.preprocess, c.cfg.features, c.bench_world,
+                   bench_drive(n), 0.004, lambda i: 100 + i, c.dev)
+    speeds = {}
+    for name, make in (
+            ("sharded", lambda: None),
+            ("dense cached", lambda: c.SlamPipeline(c.cfg, device="cuda")),
+            ("dense per-round",
+             lambda: c.SlamPipeline(per_round(c.cfg), device="cuda"))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mm.reset_collective_counts()
+        stamps = []
+        t0 = time.perf_counter()
+        if name == "sharded":
+            run = sharded_drive(c, mesh, c.cfg, bench, stamps)
+            launches = dict(kernels.LAUNCHES)
+            coll = dict(mm.COLLECTIVES)
+        else:
+            p = make()
+            for i, img in enumerate(bench):
+                p.process_ring_image(img, 0.1 * i)
+                stamps.append(time.perf_counter())
+        speeds[name] = (n - 5) / (stamps[-1] - stamps[4])
+    want = dict({k: 0 for k in kernels.LAUNCHES}, pick_rounds=n,
+                odo_corr=4 * n, select_fit=2 * n)
+    want_c = {k: v * n for k, v in DIST_FRAME_COLLECTIVES.items()}
+    say(f"distribution (a) speed, {n} bench frames (steady frames 5-"
+        f"{n - 1}): sharded world 1 {speeds['sharded']:.2f} scans/s; dense "
+        f"cached-candidate frame {speeds['dense cached']:.2f} scans/s; dense "
+        f"per-round frame {speeds['dense per-round']:.2f} scans/s; sharded "
+        f"launches {nonzero(launches)}, collectives {coll}")
+    if launches != want or coll != want_c:
+        fail(f"sharded world 1: launches {launches} (expected {want}), "
+             f"collectives {coll} (expected {want_c})")
+
+    def run3():
+        for i, img in enumerate(bench[:3]):
+            run.process_ring_image(img, 3.0 + 0.1 * i)
+    profile_collectives(torch, run3, "sharded world 1, 3 frames")
+    return launches, speeds
+
+
+def lio_sharded_step(c, mesh, pipe, img, ts):
+    """One post-initialisation LIO frame through sharded_lio_frame, from and
+    back into the dense pipeline's state (at world 1 the shards are the
+    whole maps): ``SlamPipeline._process_lio_fused`` with the hooks."""
+    cfg, torch = pipe.cfg, c.torch
+    prev = pipe._states[-1]
+    (pipe.corner_map, pipe.surf_map, pipe.pose_curr2last, pipe.pose_odom,
+     pipe.pose_odom2map, pipe.pose_map, pipe.velocity, n_corr, ok,
+     scan) = c.sp.sharded_lio_frame(
+        mesh, cfg, pipe.corner_map, pipe.surf_map, pipe.prev_scan, img,
+        torch.tensor(ts, device=c.dev), pipe.pose_curr2last, pipe.pose_odom,
+        pipe.pose_odom2map, torch.tensor(False, device=c.dev),
+        *pipe._window(prev["time"], ts),
+        *pipe._window(ts, ts + cfg.features.scan_period), prev["p"],
+        prev["q"], prev["v"], pipe.gravity, ba=pipe.bias_acc,
+        bg=pipe.bias_gyr)
+    pipe._estimator_add(ts, pipe.pose_map, pipe.velocity)
+    return pipe._finish(scan, ts, n_corr, ok)
+
+
+def dist_lio_phase(c):
+    """(c) The sharded LIO frame at world 1 on the distorted LIO drive,
+    tight coupling on."""
+    kernels, mm = c.kernels, c.mesh_mod
+    mesh = mm.make_mesh(n_map=1)
+    fcfg = c.FeatureConfig(max_points_per_ring=2048, max_less_flat=4096)
+    n = 9
+    imgs, gt = lio_images(c.synthetic, c.preprocess, fcfg, c.lio_world, n,
+                          c.dev)
+    cfg = per_round(c.MsfLoamConfig(
+        features=fcfg, mapping=c.MappingConfig(map_table_size=1 << 13,
+                                               max_query_points=2048),
+        imu=c.ImuConfig(init_frames=6, warmup_msgs=10, max_imu_samples=64,
+                        tight_coupling=True)))
+    pipe = c.SlamPipeline(cfg, device="cuda")
+    lio_feed_imu(pipe, n)
+    per_frame, n_sharded = [], 0
+    for i, img in enumerate(imgs):
+        ts = LIO_T0 + 0.1 * i
+        kernels.reset_launch_counts()
+        mm.reset_collective_counts()
+        if pipe.is_initialized and pipe._states and \
+                pipe.prev_scan is not None:
+            lio_sharded_step(c, mesh, pipe, img, ts)
+            n_sharded += 1
+            c.torch.cuda.synchronize()
+            per_frame.append((dict(kernels.LAUNCHES), dict(mm.COLLECTIVES)))
+        else:
+            pipe.process_ring_image(img, ts)
+    traj = pipe.trajectory()
+    ate = c.ate_rmse(traj[:, 1:4], gt, align=False)
+    want = dict({k: 0 for k in kernels.LAUNCHES}, pick_rounds=1, odo_corr=4,
+                select_fit=2)
+    bad = [f for f in per_frame if f[0] != want
+           or f[1] != DIST_FRAME_COLLECTIVES]
+    say(f"distribution (c) sharded LIO frame, world 1, tight coupling: ATE "
+        f"{ate:.4f} m over {n} frames (bound 0.15 m), {n_sharded} sharded "
+        f"post-init frames, each {nonzero(want)} launches and "
+        f"{DIST_FRAME_COLLECTIVES} collectives"
+        + (f"; off: {bad}" if bad else ""))
+    if not ate < 0.15 or not n_sharded or bad:
+        fail(f"sharded LIO: ATE {ate}, {n_sharded} frames, counts {bad}")
+
+
+def check_split(c, D, U, B, seg_len, tag):
+    """block_tridiag_condense and _backsub bit-equal to their plain
+    versions (the separator chain, then X from the same solved chain)."""
+    torch, bt = c.torch, c.bt
+    cp = bt.block_tridiag_condense_plain(D, U, B, seg_len)
+    ck = bt.block_tridiag_condense(D, U, B, seg_len)
+    for name in ("Dg", "Ug", "Bg"):
+        a, b = getattr(ck, name), getattr(cp, name)
+        if not torch.equal(a, b):
+            fail(f"block_tridiag_condense {tag}: {name} differs from the "
+                 f"plain version by {float((a - b).abs().max())}")
+    xg = bt.block_tridiag(ck.Dg, ck.Ug, ck.Bg)
+    Xk = bt.block_tridiag_backsub(ck, xg)
+    Xp = bt.block_tridiag_backsub_plain(cp, xg)
+    if not torch.equal(Xk, Xp) or not torch.isfinite(Xk).all():
+        fail(f"block_tridiag_backsub {tag}: differs from its plain version "
+             f"by {float((Xk - Xp).abs().max())}")
+    return ck, cp, xg, Xk
+
+
+def dist_pg_phase(c, rows):
+    """(d) The distributed pose graph at KITTI-00 size, world 1, and the
+    condense / back-substitute launches against their plain versions."""
+    torch, bt, pg, kernels, mm = c.torch, c.bt, c.pg, c.kernels, c.mesh_mod
+    mesh = mm.make_mesh(n_map=1, n_data=1)
+    rng = np.random.default_rng(1)
+    shapes = [(2, 1, None), (3, 49, None), (20, 1, None), (64, 49, None),
+              (23, 4, 5), (9, 4, 4), (30, 49, 30), (4096, 49, None)]
+    for N, m, seg_len in shapes:
+        check_split(c, *seeded_tridiag(torch, rng, N, m, c.dev), seg_len,
+                    f"N={N} m={m} seg_len={seg_len}")
+    say(f"block_tridiag_condense and _backsub on seeded systems (N, m, "
+        f"seg_len) {shapes}: each bit-equal to its plain version")
+    prob = pg_problem(c, PG_KITTI_N, PG_LOOPS, c.dev)
+    gt_t, poses0, data, loops = prob
+    cfg = c.sim_cfg.posegraph
+    D, U, B = first_gn_system(c, poses0, data, loops, cfg)
+    N, m = B.shape[0], B.shape[2]
+    ck, cp, xg, Xk = check_split(c, D, U, B, None, "KITTI-size")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bt.block_tridiag_condense_plain(D, U, B)
+    torch.cuda.synchronize()
+    c_plain = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bt.block_tridiag_backsub_plain(cp, xg)
+    torch.cuda.synchronize()
+    b_plain = (time.perf_counter() - t0) * 1e3
+    one = bt.block_tridiag(D, U, B)
+    err = float((Xk - one).abs().max() / one.abs().max())
+    say(f"distribution (d): block_tridiag_condense and _backsub on the "
+        f"KITTI-size first GN system (N={N}, m={m}, L, P = "
+        f"{bt.segments(N)}): each bit-equal to its plain version; the split "
+        f"solve against the one-launch solve: max relative difference "
+        f"{err:.2e}")
+    (cb, co), (bb, bo) = split_work(bt, N, m)
+    for key, fn, plain_ms, nb, no in (
+            ("block_tridiag_condense",
+             lambda: bt.block_tridiag_condense(D, U, B), c_plain, cb, co),
+            ("block_tridiag_backsub",
+             lambda: bt.block_tridiag_backsub(ck, xg), b_plain, bb, bo)):
+        t = dict(ms=cuda_ms(torch, fn, reps=PG_REPS),
+                 batch_ms=batch_ms(torch, fn, reps=PG_REPS),
+                 plain_ms=plain_ms)
+        dev_ms = device_only_ms(torch, fn, DEVICE_KERNEL[key], reps=PG_REPS)
+        t["device_ms"] = dev_ms if dev_ms is not None else t["batch_ms"]
+        t["device_from"] = "profiler" if dev_ms is not None else "batch"
+        rows[key] = Row()
+        rows[key].add(t, nb, no)
+        b, by = bound_ms(nb, no)
+        say(f"{key} N={N} m={m}: {fmt(t)}; bound {b * 1e3:.2f} us ({by}: "
+            f"{nb / 1e6:.1f} MB, {no / 1e6:.1f} Mflop)")
+
+    def errs(poses):
+        t = poses.t[:len(gt_t)].cpu().numpy()
+        return float(np.linalg.norm(t - gt_t, axis=1).mean())
+    ref = pg.optimize_with_loops(poses0, data, loops, cfg, n_iters=10)
+    run = lambda: pg.optimize_with_loops_distributed(
+        mesh, poses0, data, loops, cfg, n_iters=10)
+    run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mm.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, coll = dict(kernels.LAUNCHES), dict(mm.COLLECTIVES)
+    # the real poses: the padding (3651 poses chained to the last real
+    # one by identity measurements, no GPS) is discarded by every caller,
+    # and its far end moves by decimetres between two exact float32 solves
+    n = len(gt_t)
+    worst = float(torch.maximum(
+        (out.poses.t[:n] - ref.poses.t[:n]).abs().max(),
+        (out.poses.q[:n] - ref.poses.q[:n]).abs().max()))
+    tail = float((out.poses.t[n:] - ref.poses.t[n:]).abs().max())
+    t1 = time.perf_counter()
+    ref = pg.optimize_with_loops(poses0, data, loops, cfg, n_iters=10)
+    torch.cuda.synchronize()
+    wall_ref = time.perf_counter() - t1
+    want = dict({k: 0 for k in kernels.LAUNCHES},
+                **{k: 10 * v for k, v in DIST_PG_LAUNCHES.items()})
+    want_c = {k: 10 * v for k, v in DIST_PG_COLLECTIVES.items()}
+    say(f"distribution (d) optimize_with_loops_distributed, world 1, N="
+        f"{N}, 10 iterations: {wall * 1e3:.1f} ms wall (optimize_with_loops "
+        f"{wall_ref * 1e3:.1f} ms); max |dpose| against optimize_with_loops "
+        f"over the {n} real poses {worst:.2e} (bound 1e-3; the padding's "
+        f"{tail:.2e} m, not gated); cost {float(ref.final_cost):.6g} / "
+        f"{float(out.final_cost):.6g}; mean position error {errs(out.poses):.3f}"
+        f" m; per GN iteration {nonzero({k: v / 10 for k, v in launches.items()})}"
+        f" launches, {({k: v / 10 for k, v in coll.items()})} collectives")
+    if worst > 1e-3 or launches != want or coll != want_c:
+        fail(f"distributed pose graph: |dpose| {worst}, launches "
+             f"{launches} (expected {want}), collectives {coll} (expected "
+             f"{want_c})")
+    c.dist_pg_ref = (ref.poses.t.cpu().numpy(), ref.poses.q.cpu().numpy())
+    return launches
+
+
+def dist_apps_phase(c):
+    """(e) run_slam --map_shards 1, a sharded checkpoint, bench_scaling."""
+    torch, mm = c.torch, c.mesh_mod
+    s, launches = run_app(c, c.run_slam.main, [
+        "--kitti_root", c.kitti64_root, "--n_rings", "64", "--eval",
+        "--map_shards", "1", "--quiet", "--output_dir",
+        app_path("kitti64_shard1")])
+    want = dict({k: 0 for k in c.kernels.LAUNCHES},
+                pick_rounds=KITTI_FRAMES, odo_corr=4 * KITTI_FRAMES,
+                select_fit=2 * KITTI_FRAMES)
+    say(f"distribution (e) run_slam --kitti_root (64 rings) --map_shards 1 "
+        f"--eval: {s}; launches {nonzero(launches)}")
+    if s["frames"] != KITTI_FRAMES or not s["ate_rmse_m"] < 0.1 or \
+            launches != want:
+        fail(f"run_slam --map_shards 1: {s}, launches {launches} (expected "
+             f"{want})")
+
+    import tempfile
+    mesh = mm.make_mesh(n_map=1)
+    cfg = switched(c.cfg, motion_deskew=True)
+    imgs = images(c.synthetic, c.preprocess, cfg.features, c.bench_world,
+                  bench_drive(6), 0.004, lambda i: 100 + i, c.dev)
+    full = sharded_drive(c, mesh, cfg, imgs)
+    half = sharded_drive(c, mesh, cfg, imgs[:3])
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        path = os.path.join(d, "sharded.npz")
+        c.checkpoint.save_sharded_checkpoint(half, path)
+        resumed = c.sp.ShardedSlamPipeline(cfg, mesh)
+        c.checkpoint.load_sharded_checkpoint(resumed, path)
+    resumed.prev_scan = half.prev_scan
+    for i, img in enumerate(imgs[3:]):
+        resumed.process_ring_image(img, 0.1 * (i + 3))
+    worst = float(np.abs(full.trajectory()[3:, 1:8]
+                         - resumed.trajectory()[3:, 1:8]).max())
+    say(f"distribution (e) sharded checkpoint at world 1 after frame 3 of 6: "
+        f"frames 4-6 resumed vs uninterrupted max |dpose| {worst:.2e} "
+        f"(bound 1e-5)")
+    if worst > 1e-5:
+        fail(f"sharded checkpoint resume differs by {worst}")
+
+    s, _ = run_app(c, c.bench_scaling.main, ["--pipeline"])
+    say(f"distribution (e) bench_scaling at world 1: {s}")
+    if not s["steps_per_sec"] > 0:
+        fail(f"bench_scaling: {s}")
+
+
+def dist_child(rank, init, out_path):
+    """One rank of phase 10's world of 2 on the one card (gloo): (b) the
+    sharded pipeline's corridor drive and (d) the distributed pose graph;
+    its results pickled to ``out_path``."""
+    import pickle
+
+    import torch
+    c = dist_namespace(namespace(torch))
+    torch = c.torch
+    c.runtime_pg.initialize(coordinator=init, num_processes=2,
+                            process_id=rank, backend="gloo", device="cuda:0",
+                            timeout_s=DIST_JOIN_S)
+    mm, kernels = c.mesh_mod, c.kernels
+    mesh = mm.make_mesh(n_map=2, device="cuda:0")
+    world = c.synthetic.World.corridor(seed=0, size=12.0)
+    imgs = images(c.synthetic, c.preprocess, c.cfg.features, world,
+                  corridor_drive(DIST_FRAMES), 0.005, lambda i: 3, c.dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mm.reset_collective_counts()
+    t0 = time.perf_counter()
+    pipe = sharded_drive(c, mesh, c.cfg, imgs)
+    wall = time.perf_counter() - t0
+    res = dict(launches=dict(kernels.LAUNCHES),
+               collectives=dict(mm.COLLECTIVES), wall=wall,
+               traj=pipe.trajectory(), local=(
+                   int(pipe.corner_map.count.sum()),
+                   int(pipe.surf_map.count.sum())),
+               points=pipe.map_points())
+    mesh_d = mm.make_mesh(n_map=1, n_data=2, device="cuda:0")
+    _, poses0, data, loops = pg_problem(c, PG_KITTI_N, PG_LOOPS, c.dev)
+    cfg = c.sim_cfg.posegraph
+    run = lambda: c.pg.optimize_with_loops_distributed(
+        mesh_d, poses0, data, loops, cfg, n_iters=10)
+    run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mm.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    res["pg"] = dict(t=out.poses.t.cpu().numpy(), q=out.poses.q.cpu().numpy(),
+                     wall=time.perf_counter() - t0,
+                     launches=dict(kernels.LAUNCHES),
+                     collectives=dict(mm.COLLECTIVES))
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    c.runtime_pg.shutdown()
+
+
+def dist_world2_phase(c):
+    """(b) and (d) at world 2: two processes on the one card over gloo
+    (NCCL refuses two ranks on one GPU); a check that the logic holds
+    with the kernels on the card, not a speed figure."""
+    import pickle
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as d:
+        init = "file://" + os.path.join(d, "rendezvous")
+        code = "import chip_smoke as s; s.dist_child({}, {!r}, {!r})"
+        env = dict(os.environ, PYTHONPATH=here)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code.format(
+                r, init, os.path.join(d, f"rank{r}.pkl"))], cwd=here,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=DIST_JOIN_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"world-2 rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    r0, r1 = ranks
+    same = all(np.array_equal(r0[k], r1[k]) for k in ("traj",)) and \
+        np.array_equal(r0["pg"]["t"], r1["pg"]["t"]) and \
+        np.array_equal(r0["pg"]["q"], r1["pg"]["q"])
+    ref = c.dist_ref
+    d_w1 = float(np.abs(r0["traj"][:, 1:4] - ref["traj"][:, 1:4]).max())
+    d_dense = float(np.abs(r0["traj"][:, 1:4] - ref["dense"][:, 1:4]).max())
+    # the shards' points of both maps against the dense maps'
+    total = sum(r0["local"]) + sum(r1["local"])
+    dense_pts = sum(ref["dense_points"])
+    n = DIST_FRAMES
+    want_c = {k: v * n for k, v in DIST_FRAME_COLLECTIVES.items()}
+    say(f"distribution (b) world 2 on one card (gloo, two processes): ranks "
+        f"bit-equal on every pose: {same}; max |dt| against world 1 "
+        f"{d_w1:.2e} m and against the dense frame {d_dense:.2e} m (bound "
+        f"5e-3); points (corner, surface) {r0['local']} + {r1['local']} = "
+        f"{total} (dense {ref['dense_points']}, {dense_pts}; bound 0.5%); "
+        f"{n} frames in {r0['wall']:.2f} s "
+        f"wall on rank 0; launches a rank {nonzero(r0['launches'])}; "
+        f"collectives {r0['collectives']}")
+    if not same or d_w1 > 5e-3 or d_dense > 5e-3 or \
+            abs(total - dense_pts) > max(5, 0.005 * dense_pts) or \
+            r0["collectives"] != want_c:
+        fail("world-2 sharded pipeline out of bounds")
+    pg = r0["pg"]
+    rt, rq = c.dist_pg_ref
+    n = PG_KITTI_N                        # the real poses, as (d) at world 1
+    worst = float(max(np.abs(pg["t"][:n] - rt[:n]).max(),
+                      np.abs(pg["q"][:n] - rq[:n]).max()))
+    want = dict({k: 0 for k in c.kernels.LAUNCHES},
+                **{k: 10 * v for k, v in DIST_PG_LAUNCHES.items()})
+    want_c = {k: 10 * v for k, v in DIST_PG_COLLECTIVES.items()}
+    say(f"distribution (d) optimize_with_loops_distributed, world 2 (gloo), "
+        f"N={PG_KITTI_N} padded to {len(rt)}, 10 iterations: "
+        f"{pg['wall'] * 1e3:.1f} ms wall on rank 0; max |dpose| against "
+        f"optimize_with_loops over the real poses {worst:.2e} (bound 1e-3); "
+        f"per GN iteration "
+        f"{nonzero({k: v / 10 for k, v in pg['launches'].items()})} launches "
+        f"a rank, {({k: v / 10 for k, v in pg['collectives'].items()})} "
+        f"collectives")
+    if worst > 1e-3 or pg["launches"] != want or pg["collectives"] != want_c:
+        fail("world-2 distributed pose graph out of bounds")
+
+
+def dist_phase(c, rows):
+    """Phase 10; returns (d)'s world-1 launches (the condense and
+    back-substitute rows' main path)."""
+    dist_namespace(c)
+    c.runtime_pg.initialize(device="cuda")
+    try:
+        timed("distribution: (a) world 1", lambda: dist_world1_phase(c))
+        timed("distribution: (c) sharded LIO", lambda: dist_lio_phase(c))
+        launches = timed("distribution: (d) pose graph, world 1",
+                         lambda: dist_pg_phase(c, rows))
+        timed("distribution: (e) apps", lambda: dist_apps_phase(c))
+    finally:
+        c.runtime_pg.shutdown()
+    timed("distribution: (b), (d) world 2", lambda: dist_world2_phase(c))
+    return launches
+
+
 # ----------------------------------------------------------------- main
-def setup(torch):
-    """Import the port, print the card, build the kernels (phase 1) and
-    return the namespace every phase reads, with the shipping configs."""
+def namespace(torch):
+    """Import the port and return the namespace every phase reads, with
+    the shipping configs (nothing built, nothing printed)."""
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from msf_loam_tpu_torch import kernels
@@ -2754,6 +3346,29 @@ def setup(torch):
         app_kitti_to_bag=kitti_to_bag, app_rosbag_to_npz=rosbag_to_npz,
         artifacts=artifacts, kitti=kitti, npz_bag=npz_bag, nsh_bag=nsh_bag,
         rosbag=rosbag, stream=stream)
+    c.cfg = MsfLoamConfig(
+        features=FeatureConfig(max_points_per_ring=2048, max_less_flat=8192),
+        mapping=MappingConfig(map_table_size=1 << 15, map_cell_capacity=32,
+                              max_query_points=4096,
+                              max_corner_query_points=1024))
+    # bench.py's LIO configuration; init_frames / warmup_msgs cut the run's
+    # length (the defaults 50 / 100 would leave the drive uninitialised)
+    c.lio_cfg = MsfLoamConfig(
+        features=c.cfg.features, mapping=c.cfg.mapping,
+        imu=ImuConfig(tight_coupling=True, init_frames=6, warmup_msgs=10,
+                      max_imu_samples=64))
+    c.bench_world = synthetic.World.corridor(seed=0, size=14.0)
+    # apps/run_slam.py --selftest: the default config, 2048-point rings
+    c.sim_cfg = MsfLoamConfig(features=FeatureConfig(max_points_per_ring=2048))
+    c.lio_world = synthetic.World.corridor(seed=0, size=12.0)
+    return c
+
+
+def setup(torch):
+    """The namespace (``namespace``), the card printed and the kernels
+    built (phase 1)."""
+    c = namespace(torch)
+    kernels = c.kernels
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -2787,23 +3402,6 @@ def setup(torch):
                 f" (registers, spill bytes, shared bytes): " + "; ".join(
                     f"<{t}> {r}, {sp}, {sm}"
                     for t, r, sp, sm in ptxas_entries(log)))
-
-    c.cfg = MsfLoamConfig(
-        features=FeatureConfig(max_points_per_ring=2048, max_less_flat=8192),
-        mapping=MappingConfig(map_table_size=1 << 15, map_cell_capacity=32,
-                              max_query_points=4096,
-                              max_corner_query_points=1024))
-    # bench.py's LIO configuration; init_frames / warmup_msgs cut the run's
-    # length (the defaults 50 / 100 would leave the drive uninitialised)
-    c.lio_cfg = MsfLoamConfig(
-        features=c.cfg.features, mapping=c.cfg.mapping,
-        imu=ImuConfig(tight_coupling=True, init_frames=6, warmup_msgs=10,
-                      max_imu_samples=64))
-    c.bench_world = synthetic.World.corridor(seed=0, size=14.0)
-    # apps/run_slam.py --selftest: the default config, 2048-point rings
-    c.sim_cfg = MsfLoamConfig(features=FeatureConfig(max_points_per_ring=2048))
-    c.lio_world = synthetic.World.corridor(seed=0, size=12.0)
-
     return c
 
 
@@ -2848,8 +3446,11 @@ def run_phases(c, t_start):
     # ---- 9. ingest and the apps: the main path, run_slam
     app_launches, fusion_launches = timed("ingest and the apps",
                                           lambda: app_phase(c))
+    # ---- 10. the distribution layer
+    dist_launches = timed("distribution", lambda: dist_phase(c, rows))
 
-    launches = dict(app_launches, knn=knn_launches)
+    launches = dict(app_launches, knn=knn_launches,
+                    **{k: dist_launches[k] for k in SPLIT})
     say(f"launches: 64-ring KITTI-format run_slam (the main path) "
           f"{app_launches}, LIO speed run {lio_launches}, lidar speed run "
           f"{lidar_launches}, knn path {knn_launches}, batched B={BATCH_B} "
@@ -2865,13 +3466,15 @@ def run_phases(c, t_start):
         return dict(
             name=label, route="cuda",
             source=f"msf_loam_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=n,
+            replaces=REPLACES.get(label, REPLACES[name]), launches=n,
             max_abs_err=o["max_abs_err"], ms=o["ms"], plain_ms=o["plain_ms"],
             bound_ms=o["bound_ms"], bound_by=o["bound_by"],
             library_ms=o["library_ms"], device_ms=o["device_ms"],
             batch_ms=o["batch_ms"], device_from=o["device_from"])
     kern = [entry(name, name, rows[name].out(), launches[name])
             for name in kernels.SOURCES]
+    kern += [entry("block_tridiag", name, rows[name].out(), launches[name])
+             for name in SPLIT]
     kern += [entry(name, f"{name} (batched B={BATCH_B})",
                    batch_rows[name].out(), batch_launches[name])
              for name in ("pick_rounds", "odo_corr", "select_fit")]

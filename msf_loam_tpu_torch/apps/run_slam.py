@@ -13,14 +13,18 @@ pbstream artifacts.
 It runs on the card (``--device cuda``, the default) and raises on a
 machine without CUDA; ``--device cpu`` runs the kernels' plain PyTorch
 versions. ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of
-the frames and the shutdown fusion. ``--map_shards`` above 1 (the sharded
-map) is not ported yet and exits with an error.
+the frames and the shutdown fusion. ``--map_shards N`` runs the sharded
+pipeline (``parallel.sharded_pipeline``: the voxel maps split over N ranks,
+lidar-only) in a world of N processes, one rank each: torchrun starts them
+and rank 0 alone writes the artifacts and prints the summary.
 
 Usage:
   python -m msf_loam_tpu_torch.apps.run_slam --kitti_root DIR --sequence 00 \\
       [--config FILE] [--max_frames N] [--sim_gps] [--output_dir DIR]
   python -m msf_loam_tpu_torch.apps.run_slam --bag run.bag --loop_closure
   python -m msf_loam_tpu_torch.apps.run_slam --selftest --device cpu
+  torchrun --nproc_per_node 2 -m msf_loam_tpu_torch.apps.run_slam \
+      --map_shards 2 --selftest --device cpu
 """
 
 from __future__ import annotations
@@ -96,8 +100,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--viz_period", type=int, default=20,
                     help="frames between --viz_stream publishes")
     ap.add_argument("--map_shards", type=int, default=0,
-                    help="shard the voxel map over N devices (not ported "
-                         "yet: N > 1 exits with an error)")
+                    help="shard the voxel map over N ranks (lidar-only; "
+                         "run under torchrun --nproc_per_node N)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the card (default; raises without CUDA) "
                          "or on the CPU with the kernels' plain versions")
@@ -106,9 +110,37 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _make_pipeline(cfg, args):
-    """The SlamPipeline on ``--device``."""
+    """The SlamPipeline on ``--device``, or with ``--map_shards`` the
+    sharded pipeline on ``args.mesh``."""
+    mesh = getattr(args, "mesh", None)
+    if mesh is not None:
+        from msf_loam_tpu_torch.parallel.sharded_pipeline import \
+            ShardedSlamPipeline
+        return ShardedSlamPipeline(cfg, mesh)
     from msf_loam_tpu_torch.slam.pipeline import SlamPipeline
     return SlamPipeline(cfg, device=args.device)
+
+
+def _shard_mesh(ap, args):
+    """The (1, N) mesh of ``--map_shards N``: the process group started
+    from torchrun's environment, its size N, one rank a process. Returns
+    (mesh, whether this call started the group)."""
+    import torch.distributed as dist
+
+    from msf_loam_tpu_torch.parallel import mesh as mesh_mod
+    from msf_loam_tpu_torch.parallel import runtime
+    started = not dist.is_initialized()
+    runtime.initialize(device=args.device)
+    world = dist.get_world_size()
+    if world != args.map_shards:
+        if started:
+            runtime.shutdown()
+        ap.error(f"--map_shards {args.map_shards} needs a world of "
+                 f"{args.map_shards} ranks; this one has {world}: run "
+                 f"torchrun --nproc_per_node {args.map_shards} -m "
+                 f"msf_loam_tpu_torch.apps.run_slam ...")
+    return mesh_mod.make_mesh(n_map=args.map_shards,
+                              device=args.device), started
 
 
 def _tree_to(x, device):
@@ -198,18 +230,27 @@ def _close_loops(cfg, poses, data, traj, keyframes, logger, device,
 def main(argv=None) -> int:
     ap = build_argparser()
     args = ap.parse_args(argv)
-    if args.map_shards and args.map_shards > 1:
-        ap.error("--map_shards > 1 (the sharded voxel map) is not ported "
-                 "to PyTorch yet; it lands with parallel/* (ROADMAP A12)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_slam --device cuda (the default) needs a "
                            "CUDA device; pass --device cpu to run the plain "
                            "PyTorch versions of the kernels")
+    args.mesh, started = _shard_mesh(ap, args) if args.map_shards else (
+        None, False)
+    try:
+        return _run(args, args.mesh)
+    finally:
+        if started:
+            from msf_loam_tpu_torch.parallel import runtime
+            runtime.shutdown()
+
+
+def _run(args, mesh) -> int:
+    root = mesh is None or mesh.rank == 0
     logging.basicConfig(
-        level=logging.WARNING if args.quiet else logging.INFO,
+        level=logging.WARNING if args.quiet or not root else logging.INFO,
         format="%(levelname).1s %(asctime)s %(name)s] %(message)s")
     verbose = logger.isEnabledFor(logging.INFO)
-    dev = torch.device(args.device)
+    dev = torch.device(args.device) if mesh is None else mesh.device
 
     from msf_loam_tpu_torch.config import MsfLoamConfig
     from msf_loam_tpu_torch.dataio import artifacts, preprocess
@@ -226,7 +267,7 @@ def main(argv=None) -> int:
     keyframes = {}  # frame index -> ScanFeatures snapshot in host memory
 
     viz = None
-    if args.viz_stream:
+    if args.viz_stream and root:
         from msf_loam_tpu_torch.apps.viz_stream import VizStreamWriter
         viz = VizStreamWriter(args.viz_stream, period=args.viz_period)
 
@@ -242,7 +283,7 @@ def main(argv=None) -> int:
             keyframes[idx] = _tree_to(pipe.prev_scan, "cpu")
 
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and root:
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if dev.type == "cuda":
@@ -450,6 +491,14 @@ def main(argv=None) -> int:
     if viz is not None:
         viz.publish(pipe, done=True)
 
+    whole_surf = None
+    if mesh is not None and args.save_map:
+        # every rank takes part in the gather of the whole map
+        from msf_loam_tpu_torch.parallel.sharded_map import gather_map
+        whole_surf = gather_map(mesh, pipe.surf_map)
+    if not root:
+        return 0
+
     traj = pipe.trajectory()
     elapsed = time.perf_counter() - t_start
     n_frames = len(traj)
@@ -527,7 +576,7 @@ def main(argv=None) -> int:
             summary["pbstream"] = True
 
     if args.save_map:
-        surf = pipe.surf_map
+        surf = pipe.surf_map if whole_surf is None else whole_surf
         stored = surf.points.reshape(-1, 3).cpu().numpy()
         occ = (np.arange(surf.slab_capacity)[None, :]
                < surf.count.cpu().numpy()[:, None]).reshape(-1)

@@ -80,7 +80,7 @@ class MappingConfig:
     knn_dist_sq_max: float = 1.0
     plane_fallback: bool = True
     knn_wide: int = 16
-    reuse_candidates: bool = True      # only the cached-candidate path is ported
+    reuse_candidates: bool = True      # False: query the maps every round
     fused_select: str = "auto"         # ignored: the port always uses its kernel
     gather_two_level: str = "off"
     gather_u_max: int = 4096
@@ -243,9 +243,6 @@ class MsfLoamConfig:
         if self.imu.preint_mode not in ("assoc", "scan"):
             raise ValueError(f"imu.preint_mode={self.imu.preint_mode!r} must "
                              f"be 'assoc' or 'scan'")
-        if not mc.reuse_candidates:
-            raise ValueError("the port runs the cached-candidate scan-to-map "
-                             "path only (mapping.reuse_candidates=True)")
 
     @staticmethod
     def from_json(path: str) -> "MsfLoamConfig":

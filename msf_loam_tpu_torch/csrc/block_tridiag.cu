@@ -70,6 +70,14 @@
 // The wrapper sizes the grid to min(P, co-resident blocks): blocks loop
 // over segments when P exceeds what the card holds at once.
 //
+// Split launches for a solve whose separator chain is solved elsewhere (the
+// distributed solve of parallel/distributed_ba.py, where the chain is
+// gathered across ranks between the phases): block_tridiag_condense runs
+// phase 1 alone and leaves the chain in scratch, block_tridiag_backsub
+// writes the solved endpoints into X and runs phase 3 alone. Both run the
+// same device code as the one-launch path, one block a segment, with no
+// grid barrier.
+//
 // One launch: cudaLaunchCooperativeKernel and two
 // cooperative_groups::this_grid().sync() barriers. Under CUDA 12.8 the grid
 // barrier compiles into this shared library without -rdc (relocatable device
@@ -815,6 +823,30 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int s = blockIdx.x; s < q.P; s += gridDim.x) back_substitute(q, s, sm);
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+    block_tridiag_condense_kernel(Params q) {
+  extern __shared__ __align__(16) float sh[];
+  const Smem sm = carve(sh, q.m);
+  condense(q, blockIdx.x, sm);
+}
+
+// xg (2P, 6, m): segment s's solved first and last block at 2s, 2s + 1.
+__global__ void __launch_bounds__(kMaxThreads)
+    block_tridiag_backsub_kernel(Params q, const float* xg) {
+  extern __shared__ __align__(16) float sh[];
+  const Smem sm = carve(sh, q.m);
+  const int s = blockIdx.x;
+  int start, len;
+  seg_range(q, s, start, len);
+  const size_t bs = (size_t)6 * q.m;
+  for (int e = threadIdx.x; e < 6 * q.m; e += blockDim.x) {
+    q.X[(size_t)start * bs + e] = xg[(size_t)(2 * s) * bs + e];
+    q.X[(size_t)(start + len - 1) * bs + e] = xg[(size_t)(2 * s + 1) * bs + e];
+  }
+  __syncthreads();
+  back_substitute(q, s, sm);
+}
+
 // Blocks the card holds at once for this launch shape (0 if none fits).
 int resident_blocks(int m, int* per_sm, int* sms) {
   const size_t smem = smem_for(m);
@@ -838,6 +870,31 @@ int resident_blocks(int m, int* per_sm, int* sms) {
       per_sm, block_tridiag_kernel, threads_for(m), smem);
   if (e != cudaSuccess) return -(int)e;
   return *per_sm * *sms;
+}
+
+Params split_params(const float* D, const float* U, const float* B,
+                           float* X, float* work, int* piv, int N, int m,
+                           int L, int P) {
+  Params q;
+  q.D = D;
+  q.U = U;
+  q.B = B;
+  q.X = X;
+  q.work = work;
+  q.piv = piv;
+  q.N = N;
+  q.m = m;
+  q.L = L;
+  q.P = P;
+  q.lay = make_layout(N, m, L, P);
+  return q;
+}
+
+cudaError_t allow_smem(const void* fn, int m) {
+  const size_t smem = smem_for(m);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -886,6 +943,47 @@ int block_tridiag_launch(const float* D, const float* U, const float* B,
       args, smem_for(m), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Phase 1 alone (N >= 2): the separator chain is left in work at the
+// offsets of block_tridiag_sep_offsets, the residues beside it. One launch
+// of P blocks.
+int block_tridiag_condense_launch(const float* D, const float* U,
+                                  const float* B, float* work, int* piv,
+                                  int N, int m, int L, int P,
+                                  cudaStream_t stream) {
+  if (N < 2 || m < 1 || P < 1 || L < 2) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)block_tridiag_condense_kernel, m);
+  if (e != cudaSuccess) return (int)e;
+  const Params q = split_params(D, U, B, nullptr, work, piv, N, m, L, P);
+  block_tridiag_condense_kernel<<<P, threads_for(m), smem_for(m), stream>>>(q);
+  return (int)cudaGetLastError();
+}
+
+// Phase 3 alone: X (N,6,m) from the solved separator blocks xg (2P,6,m) and
+// the scratch of block_tridiag_condense_launch. One launch of P blocks.
+int block_tridiag_backsub_launch(const float* U, const float* xg, float* X,
+                                 float* work, int* piv, int N, int m, int L,
+                                 int P, cudaStream_t stream) {
+  if (N < 2 || m < 1 || P < 1 || L < 2) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)block_tridiag_backsub_kernel, m);
+  if (e != cudaSuccess) return (int)e;
+  const Params q = split_params(nullptr, U, nullptr, X, work, piv, N, m, L, P);
+  block_tridiag_backsub_kernel<<<P, threads_for(m), smem_for(m), stream>>>(
+      q, xg);
+  return (int)cudaGetLastError();
+}
+
+// Float offsets in work of the separator chain's diagonal blocks, couplings
+// and right-hand sides.
+int block_tridiag_sep_offsets(int N, int m, int L, int P, long long* sep_d,
+                              long long* sep_u, long long* sep_b) {
+  if (N < 1 || m < 1 || P < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  const Layout o = make_layout(N, m, L, P);
+  *sep_d = o.sep_d;
+  *sep_u = o.sep_u;
+  *sep_b = o.sep_b;
+  return 0;
 }
 
 // The launch for m right-hand sides in P segments: grid blocks, threads,

@@ -1,6 +1,7 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
-The JAX package's state — voxel hash maps, poses, point batches, scan
+The JAX package's state — voxel hash maps (whole, or a sharded map's
+slot range), poses, point batches, scan
 features, ring images, the batched pipeline's state, the IMU
 estimator (preintegrations, states, the sample buffer) and pose-graph
 problems (graph data, loop factors) — is this
@@ -70,6 +71,39 @@ def map_from_numpy(m: Any, device="cuda") -> VoxelHashMap:
                         n_obs=_t(m.n_obs, torch.float32, device),
                         cell_size=float(np.asarray(m.cell_size)),
                         leaf=float(np.asarray(m.leaf)))
+
+
+def _field(m: Any, name: str) -> np.ndarray:
+    """A map field as numpy, from a container or a dict of arrays."""
+    v = m[name] if isinstance(m, dict) else getattr(m, name)
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def map_shard_from_numpy(m: Any, offset: int, size: int,
+                         device="cuda") -> VoxelHashMap:
+    """Slots [offset, offset + size) of a whole map (the JAX package's
+    numpy layout, a dict of its fields, or a port map) as a sharded map's
+    local shard."""
+    sl = slice(offset, offset + size)
+    return VoxelHashMap(
+        points=_t(_field(m, "points")[sl], torch.float32, device),
+        leaf_key=_t(_field(m, "leaf_key")[sl], torch.int32, device),
+        count=_t(_field(m, "count")[sl], torch.int32, device),
+        n_obs=_t(_field(m, "n_obs")[sl], torch.float32, device),
+        cell_size=float(_field(m, "cell_size")),
+        leaf=float(_field(m, "leaf")))
+
+
+def map_from_shards(shards) -> Dict[str, Any]:
+    """The whole map, in the JAX package's numpy layout, from the local
+    shards of every rank (port maps or dicts of their fields) in rank
+    order, slot offsets ascending."""
+    out = {f: np.concatenate([_field(sh, f) for sh in shards])
+           for f in ("points", "leaf_key", "count", "n_obs")}
+    out["cell_size"] = np.float32(_field(shards[0], "cell_size"))
+    out["leaf"] = np.float32(_field(shards[0], "leaf"))
+    return out
 
 
 def preintegration_from_numpy(pre: Any, device="cuda") -> Preintegration:

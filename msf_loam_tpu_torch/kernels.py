@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# block_tridiag's split launches (condense, back-substitute) count apart
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES + (
+    "block_tridiag_condense", "block_tridiag_backsub")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -154,16 +154,27 @@ def _thomas(Dg: Tensor, Ug: Tensor, Bg: Tensor) -> Tensor:
     return torch.cat(X)
 
 
-def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor,
-                        seg_len: Optional[int] = None) -> Tensor:
-    """Plain PyTorch version: the kernel's decomposition, each condensation
-    and back-substitution step on all segments at once (a segment whose
-    interior is done keeps its state through ``torch.where``), the
-    separator one block step at a time."""
+class Condensed(NamedTuple):
+    """One solve's condensation: the separator chain (diagonal blocks
+    Dg (2P, 6, 6), couplings Ug (2P-1, 6, 6) alternating between each
+    segment's condensed S0e and the U between segments, right-hand sides
+    Bg (2P, 6, m)) and what back-substitution needs (``res``: the plain
+    version's per-step residues, or the kernel's scratch)."""
+    Dg: Tensor
+    Ug: Tensor
+    Bg: Tensor
+    U: Tensor
+    N: int
+    L: int
+    P: int
+    res: tuple
+
+
+def _condense_plain(D: Tensor, U: Tensor, B: Tensor, L: int, P: int):
+    """Phase 1 of the plain version: every segment condensed at once (a
+    segment whose interior is done keeps its state through
+    ``torch.where``). Returns the separator chain and the residues."""
     N, m = B.shape[0], B.shape[2]
-    L, P = segments(N, seg_len)
-    if N == 1:
-        return _thomas(D, U, B)
     dev = B.device
     start = torch.arange(P, device=dev) * L
     lens = torch.full((P,), L, device=dev)
@@ -190,8 +201,17 @@ def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor,
     Dg = torch.stack([S00, Skk], 1).reshape(2 * P, 6, 6)
     Ug = torch.stack([S0k, Ub], 1).reshape(2 * P, 6, 6)[:-1]
     Bg = torch.stack([b0, bk], 1).reshape(2 * P, 6, m)
-    xg = _thomas(Dg, Ug, Bg).reshape(P, 2, 6, m)
-    X = torch.empty_like(B)
+    return Dg, Ug, Bg, (start, lens, steps, res)
+
+
+def _backsub_plain(U: Tensor, N: int, res: tuple, xg: Tensor) -> Tensor:
+    """Phase 3 of the plain version: every segment's interior from its
+    solved first and last block ``xg`` (2P, 6, m)."""
+    start, lens, steps, res = res
+    P, m = start.shape[0], xg.shape[2]
+    ends = start + lens - 1
+    xg = xg.reshape(P, 2, 6, m)
+    X = xg.new_empty((N, 6, m))
     X[start], X[ends] = xg[:, 0], xg[:, 1]
     x0, xn = xg[:, 0], xg[:, 1]
     for k in range(steps, 0, -1):
@@ -202,6 +222,19 @@ def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor,
         xn = torch.where(live[:, None, None], x, xn)
         X[(start + k)[live]] = x[live]
     return X
+
+
+def block_tridiag_plain(D: Tensor, U: Tensor, B: Tensor,
+                        seg_len: Optional[int] = None) -> Tensor:
+    """Plain PyTorch version: the kernel's decomposition, each condensation
+    and back-substitution step on all segments at once, the separator one
+    block step at a time."""
+    N = B.shape[0]
+    L, P = segments(N, seg_len)
+    if N == 1:
+        return _thomas(D, U, B)
+    Dg, Ug, Bg, res = _condense_plain(D, U, B, L, P)
+    return _backsub_plain(U, N, res, _thomas(Dg, Ug, Bg))
 
 
 # ------------------------------------------------------------ the kernel
@@ -240,6 +273,104 @@ def block_tridiag(D: Tensor, U: Tensor, B: Tensor,
              kernels.stream(B.device))
     kernels.check(err, "block_tridiag")
     kernels.LAUNCHES["block_tridiag"] += 1
+    return X
+
+
+# ------------------------------------------- split launches (phases 1, 3)
+_OFFSET_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+
+def _check_split(D: Tensor, U: Tensor, B: Tensor) -> None:
+    N = B.shape[0]
+    if D.shape != (N, 6, 6) or U.shape != (max(N - 1, 0), 6, 6) or \
+            B.dim() != 3 or B.shape[1] != 6 or N < 2 or B.shape[2] < 1:
+        raise ValueError(f"block_tridiag_condense: D (N,6,6), U (N-1,6,6), "
+                         f"B (N,6,m) with N >= 2 expected, got "
+                         f"{tuple(D.shape)}, {tuple(U.shape)}, "
+                         f"{tuple(B.shape)}")
+
+
+def block_tridiag_condense_plain(D: Tensor, U: Tensor, B: Tensor,
+                                 seg_len: Optional[int] = None) -> Condensed:
+    """Plain version of ``block_tridiag_condense``."""
+    _check_split(D, U, B)
+    N = B.shape[0]
+    L, P = segments(N, seg_len)
+    Dg, Ug, Bg, res = _condense_plain(D, U, B, L, P)
+    return Condensed(Dg, Ug, Bg, U, N, L, P, res)
+
+
+def block_tridiag_backsub_plain(cond: Condensed, xg: Tensor) -> Tensor:
+    """Plain version of ``block_tridiag_backsub``."""
+    return _backsub_plain(cond.U, cond.N, cond.res, xg)
+
+
+def block_tridiag_condense(D: Tensor, U: Tensor, B: Tensor,
+                           seg_len: Optional[int] = None) -> Condensed:
+    """Phase 1 alone: the N >= 2 blocks condensed segment by segment onto
+    their separator chain of 2P blocks (``Condensed``). One kernel launch
+    on a CUDA tensor (the one-launch path's condensation, no grid
+    barrier), the plain version on a CPU tensor. Solve the chain (for
+    ``xg``), then ``block_tridiag_backsub``."""
+    if B.device.type == "cpu":
+        return block_tridiag_condense_plain(D, U, B, seg_len)
+    _check_split(D, U, B)
+    N, m = B.shape[0], B.shape[2]
+    if any(t.dtype != torch.float32 or t.device != B.device
+           for t in (D, U, B)) or m > MAX_RHS:
+        raise ValueError("block_tridiag_condense: D, U, B must be float32 "
+                         f"on one device, with at most {MAX_RHS} columns")
+    L, P = segments(N, seg_len)
+    D, U, B = D.contiguous(), U.contiguous(), B.contiguous()
+    nf, ni = ctypes.c_longlong(), ctypes.c_longlong()
+    kernels.check(kernels.function(
+        "block_tridiag", "block_tridiag_scratch", _SCRATCH_ARGS)(
+        N, m, L, P, ctypes.addressof(nf), ctypes.addressof(ni)),
+        "block_tridiag scratch")
+    work = torch.empty(nf.value, dtype=torch.float32, device=B.device)
+    piv = torch.empty(ni.value, dtype=torch.int32, device=B.device)
+    fn = kernels.function("block_tridiag", "block_tridiag_condense_launch",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p])
+    kernels.check(fn(D.data_ptr(), U.data_ptr(), B.data_ptr(),
+                     work.data_ptr(), piv.data_ptr(), N, m, L, P,
+                     kernels.stream(B.device)), "block_tridiag_condense")
+    kernels.LAUNCHES["block_tridiag_condense"] += 1
+    off = [ctypes.c_longlong() for _ in range(3)]
+    kernels.check(kernels.function(
+        "block_tridiag", "block_tridiag_sep_offsets", _OFFSET_ARGS)(
+        N, m, L, P, *(ctypes.addressof(o) for o in off)),
+        "block_tridiag offsets")
+    od, ou, ob = (o.value for o in off)
+    Dg = work[od:od + 2 * P * 36].view(2 * P, 6, 6)
+    Ug = work[ou:ou + (2 * P - 1) * 36].view(2 * P - 1, 6, 6)
+    Bg = work[ob:ob + 2 * P * 6 * m].view(2 * P, 6, m)
+    return Condensed(Dg, Ug, Bg, U, N, L, P, (work, piv))
+
+
+def block_tridiag_backsub(cond: Condensed, xg: Tensor) -> Tensor:
+    """Phase 3 alone: X (N, 6, m) from ``block_tridiag_condense``'s state
+    and the solved separator blocks ``xg`` (2P, 6, m). One kernel launch
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if xg.shape != cond.Bg.shape:
+        raise ValueError(f"block_tridiag_backsub: xg {tuple(xg.shape)} "
+                         f"expected {tuple(cond.Bg.shape)}")
+    if xg.device.type == "cpu":
+        return block_tridiag_backsub_plain(cond, xg)
+    if xg.dtype != torch.float32 or xg.device != cond.U.device:
+        raise ValueError("block_tridiag_backsub: xg must be float32 on the "
+                         "condensed system's device")
+    work, piv = cond.res
+    N, m = cond.N, xg.shape[2]
+    xg = xg.contiguous()
+    X = xg.new_empty((N, 6, m))
+    fn = kernels.function("block_tridiag", "block_tridiag_backsub_launch",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p])
+    kernels.check(fn(cond.U.data_ptr(), xg.data_ptr(), X.data_ptr(),
+                     work.data_ptr(), piv.data_ptr(), N, m, cond.L, cond.P,
+                     kernels.stream(xg.device)), "block_tridiag_backsub")
+    kernels.LAUNCHES["block_tridiag_backsub"] += 1
     return X
 
 

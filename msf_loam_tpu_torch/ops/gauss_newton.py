@@ -69,16 +69,27 @@ def gauss_newton(build_blocks: Callable[[Pose, Tensor],
                                               Sequence[Tensor]]],
                  pose0: Pose, velocity0: Tensor, n_iters: int,
                  state_dim: int = 6, damping: float = 1e-4,
-                 step_clip: float = 1.0) -> GNState:
+                 step_clip: float = 1.0, group=None) -> GNState:
     """Fixed-iteration damped Gauss-Newton on a pose (state_dim 6) or on
     [pose, velocity] (state_dim 9, tangent [dt, dtheta, dv]).
 
-    ``build_blocks(pose, velocity)`` returns (blocks_list, weights_list)."""
+    ``build_blocks(pose, velocity)`` returns (blocks_list, weights_list).
+    ``group`` (a ``parallel.mesh.Axis``, JAX's ``axis_name``): the residual
+    blocks are this rank's share; the normal equations [H, g, cost, n_in]
+    are summed over the axis in one all-reduce of a packed buffer each
+    iteration, before the replicated solve."""
     pose, vel = pose0, velocity0
     cost = n_in = None
     for _ in range(n_iters):
         blocks, weights = build_blocks(pose, vel)
         H, g, cost, n_in = accumulate_normal_eqs(blocks, weights, state_dim)
+        if group is not None:
+            d2 = state_dim * state_dim
+            buf = group.all_reduce(torch.cat([H.reshape(-1), g, cost[None],
+                                              n_in[None]]))
+            H = buf[:d2].view(state_dim, state_dim)
+            g = buf[d2:d2 + state_dim]
+            cost, n_in = buf[d2 + state_dim], buf[d2 + state_dim + 1]
         H = H + damping * torch.diag(torch.clamp(torch.diagonal(H), min=1.0))
         dx = -_solve_psd(H, g)
         dx = torch.clamp(dx, -step_clip, step_clip)
@@ -91,7 +102,7 @@ def gauss_newton(build_blocks: Callable[[Pose, Tensor],
 
 def solve_edge_plane(pose0: Pose, edges: Sequence[Tensor],
                      planes: Sequence[Tensor], huber_delta: float,
-                     n_iters: int) -> GNState:
+                     n_iters: int, group=None) -> GNState:
     """The rigid point-to-line + point-to-plane Gauss-Newton of the scan
     matchers, Huber-weighted; ``edges`` / ``planes`` are (points, centre,
     direction or normal, valid). With a leading lane axis on ``pose0`` and
@@ -104,8 +115,11 @@ def solve_edge_plane(pose0: Pose, edges: Sequence[Tensor],
             pb = icp.plane_residuals(q, *p)
             return [eb, pb], [huber_weights(eb, huber_delta),
                               huber_weights(pb, huber_delta)]
-        return gauss_newton(build, pose, torch.zeros_like(pose.t), n_iters)
+        return gauss_newton(build, pose, torch.zeros_like(pose.t), n_iters,
+                            group=group)
 
     if pose0.t.dim() == 1:
         return solve(pose0, edges, planes)
+    if group is not None:
+        raise ValueError("solve_edge_plane: a group takes one lane")
     return torch.func.vmap(solve)(pose0, tuple(edges), tuple(planes))

@@ -10,6 +10,10 @@ JSON encoding of the estimator window are the JAX package's, so a file
 written by either package loads into the other. The previous scan is not
 saved: a resumed pipeline takes it from the caller (``pipe.prev_scan``),
 or treats its next frame as a first one.
+
+``save_sharded_checkpoint`` / ``load_sharded_checkpoint`` do the same for
+the sharded pipeline (``parallel.sharded_pipeline``): each rank's map
+shards under their global slot offsets, in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -123,6 +127,83 @@ def load_checkpoint(pipe: "SlamPipeline", path: str) -> None:
         states = json.loads(bytes(z["states_json"]).decode() or "[]")
         pipe._states = [{k: (f32(v) if isinstance(v, list) else v)
                          for k, v in s.items()} for s in states]
+        pipe.results = [
+            FrameResult(time=float(r[0]),
+                        odom_pose=Pose(f32(r[1:4]), f32(r[4:8])),
+                        map_pose=Pose(f32(r[1:4]), f32(r[4:8])),
+                        n_correspondences=0.0, ok=True)
+            for r in z["traj"]]
+
+
+_MAP_FIELDS = ("points", "leaf_key", "count", "n_obs")
+
+
+def _rank_path(pipe, path: str) -> str:
+    return f"{path}.proc{pipe.mesh.rank}" if pipe.mesh.world_size > 1 \
+        else path
+
+
+def _slot_offset(pipe) -> int:
+    """First global slot of this rank's shard (the maps' shard size times
+    the rank's index on the map axis)."""
+    return pipe.corner_map.table_size * pipe.mesh.axis("map").index
+
+
+def save_sharded_checkpoint(pipe, path: str) -> None:
+    """Snapshot a ``ShardedSlamPipeline``: each rank writes its map shards,
+    keyed ``{cmap,smap}_{field}@{global slot offset}``, and the replicated
+    pose chain and trajectory (the JAX package's keys) to
+    ``<path>.proc<rank>``, or to ``path`` at world size 1. Resume needs
+    the same world size."""
+    payload = {"frame_idx": np.int64(pipe.frame_idx)}
+    for key, attr in _POSES:
+        pose = getattr(pipe, attr)
+        payload[f"{key}_t"] = _np(pose.t)
+        payload[f"{key}_q"] = _np(pose.q)
+    payload["traj"] = pipe.trajectory() if pipe.results else np.zeros((0, 8))
+    off = _slot_offset(pipe)
+    for pref, attr in _MAPS:
+        m = getattr(pipe, attr)
+        for field in _MAP_FIELDS:
+            payload[f"{pref}_{field}@{off}"] = _np(getattr(m, field))
+    _atomic_savez(_rank_path(pipe, path), payload)
+
+
+def load_sharded_checkpoint(pipe, path: str) -> None:
+    """Restore a ``ShardedSlamPipeline`` (built with the same config and
+    world size) in place: each rank reads ``<path>.proc<rank>`` where it
+    exists, else ``path`` (a file holding every offset, as the JAX
+    package's single-process save of a multi-way mesh), and takes only its
+    own slot offset."""
+    from msf_loam_tpu_torch.slam.pipeline import FrameResult
+
+    dev = pipe.device
+
+    def f32(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+
+    own = _rank_path(pipe, path)
+    if not os.path.exists(own):
+        own = path
+    off = _slot_offset(pipe)
+    with np.load(own) as z:
+        pipe.frame_idx = int(z["frame_idx"])
+        for key, attr in _POSES:
+            setattr(pipe, attr, Pose(f32(z[f"{key}_t"]), f32(z[f"{key}_q"])))
+        for pref, attr in _MAPS:
+            m = getattr(pipe, attr)
+            fields = {}
+            for field in _MAP_FIELDS:
+                cur = getattr(m, field)
+                arr = z[f"{pref}_{field}@{off}"]
+                if arr.shape != tuple(cur.shape):
+                    raise ValueError(
+                        f"{own}: {pref}_{field}@{off} has shape {arr.shape}, "
+                        f"the pipeline's shard {tuple(cur.shape)}")
+                fields[field] = torch.as_tensor(arr, dtype=cur.dtype,
+                                                device=dev)
+            setattr(pipe, attr, m._replace(**fields))
         pipe.results = [
             FrameResult(time=float(r[0]),
                         odom_pose=Pose(f32(r[1:4]), f32(r[4:8])),

@@ -1,21 +1,29 @@
 """Scan-to-map registration against the voxel hash maps (port of the JAX
-package's ``slam/mapping.py`` on its cached fused-selection branch): the
-loosely-coupled matcher ``match_scan2map_core`` (``match_scan2map``
-without query groups) and the IMU-coupled
-``match_scan2map_deskew_core`` / ``match_scan2map_tight_core``.
+package's ``slam/mapping.py``): the loosely-coupled matcher
+``match_scan2map_core`` and the IMU-coupled ``match_scan2map_deskew_core``
+/ ``match_scan2map_tight_core``.
 
-The 8-cell octant candidates of both feature clouds are gathered once per
-frame: with query groups (the fused frames' grouped downsample) by the
-two-level grouped gather in rows layout, without them by the one-level
-gather in planar (3, Q, 8P) layout. Every re-association round re-runs
-only the fused selection + fit kernel, one launch for both maps
-(``ops.select_fit.select_fit_pair``): ``line`` for corners, ``plane2`` (or
-``plane``) for surfaces, then a 6-iteration Gauss-Newton.
+Two association paths, as in the JAX package:
+
+* cached (``mapping.reuse_candidates``, no hooks): the 8-cell octant
+  candidates of both feature clouds are gathered once per frame (with
+  query groups by the two-level grouped gather in rows layout, without
+  them by the one-level planar gather); every re-association round re-runs
+  only the fused selection + fit kernel, one launch for both maps
+  (``ops.select_fit.select_fit_pair``): ``line`` for corners, ``plane2``
+  (or ``plane``) for surfaces;
+* per-round (``reuse_candidates=False``, or any query hook of
+  ``MapHooks``): each round queries the maps again (``voxel_map.query_knn``
+  / ``query_knn_2r``, or the hooks: the sharded map's all-gather-merged
+  queries) and fits with ``ops.fitting`` (plain PyTorch, XLA in the JAX
+  package).
+
+Each round ends in a 6-iteration Gauss-Newton.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,10 +33,12 @@ from msf_loam_tpu_torch.core.pointcloud import PointBatch
 from msf_loam_tpu_torch.core.se3 import Pose, select_pose
 from msf_loam_tpu_torch.imu import imu_factor as imu_factor_mod
 from msf_loam_tpu_torch.imu.preintegration import sqrt_information
+from msf_loam_tpu_torch.ops import fitting
 from msf_loam_tpu_torch.ops import gauss_newton as gn
 from msf_loam_tpu_torch.ops import icp_residuals as icp
 from msf_loam_tpu_torch.ops.select_fit import select_fit_pair
 from msf_loam_tpu_torch.slam import voxel_map as vm
+from msf_loam_tpu_torch.slam.voxel_map import _sq_f32
 
 Tensor = torch.Tensor
 
@@ -44,11 +54,32 @@ class MapCorrespondences(NamedTuple):
     plane_valid: Tensor
 
 
-def _sq_f32(x: float) -> float:
-    """x**2 rounded as float32 arithmetic rounds it (the JAX radii are
-    float32 scalars)."""
-    x = np.float32(x)
-    return float(x * x)
+class MapHooks(NamedTuple):
+    """A map backend for the frame cores and matchers (the JAX package's
+    ``*_fn`` arguments): ``query_fn(map, xyz, mask, k)``,
+    ``query2_fn(map, xyz, mask, k, k2)``, ``query_pair_fn(cmap, smap, cw,
+    cmask, sw, smask)`` (both feature types in one call; taken when
+    ``plane_fallback`` is on), ``insert_fn(map, xyz, mask)``,
+    ``odometry_fn(prev_scan, scan, pose_c2l, odometry_cfg)`` and
+    ``map_ok_fn(cmap, smap, mapping_cfg)`` (the map-size gate, over the
+    whole map). A hook left None takes the dense map's function."""
+    query_fn: Optional[Callable] = None
+    query2_fn: Optional[Callable] = None
+    query_pair_fn: Optional[Callable] = None
+    insert_fn: Optional[Callable] = None
+    odometry_fn: Optional[Callable] = None
+    map_ok_fn: Optional[Callable] = None
+
+    def queries(self) -> bool:
+        """Any query hook set: the per-round association path."""
+        return (self.query_fn is not None or self.query2_fn is not None
+                or self.query_pair_fn is not None)
+
+
+def per_round(cfg: MappingConfig, hooks: Optional[MapHooks]) -> bool:
+    """The matcher queries the maps every round (no candidate cache)."""
+    return not cfg.reuse_candidates or (hooks is not None
+                                        and hooks.queries())
 
 
 class _CandidateCache:
@@ -103,6 +134,75 @@ class _CandidateCache:
                                   fs.normal.view(sw.shape), plane_valid)
 
 
+def _associate(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
+               corner: PointBatch, surf: PointBatch, cw: Tensor, sw: Tensor,
+               cfg: MappingConfig, hooks: Optional[MapHooks] = None
+               ) -> MapCorrespondences:
+    """Line and plane correspondences of every feature at the query
+    positions ``cw`` / ``sw``, from k-NN queries of the maps (the hooks'
+    where given)."""
+    hooks = hooks or MapHooks()
+    if hooks.query_pair_fn is not None and cfg.plane_fallback:
+        sel_c, sel_s = hooks.query_pair_fn(corner_map, surf_map, cw,
+                                           corner.mask, sw, surf.mask)
+        return _correspondences_from_selection(corner, surf, sel_c, sel_s,
+                                               cfg)
+    query_fn = hooks.query_fn or vm.query_knn
+    sel_c = query_fn(corner_map, cw, corner.mask, k=cfg.knn)
+    if cfg.plane_fallback:
+        sel_s = (hooks.query2_fn or vm.query_knn_2r)(
+            surf_map, sw, surf.mask, k=cfg.knn, k2=cfg.knn_wide)
+    else:
+        sel_s = query_fn(surf_map, sw, surf.mask, k=cfg.knn)
+    return _correspondences_from_selection(corner, surf, sel_c, sel_s, cfg)
+
+
+def _correspondences_from_selection(corner: PointBatch, surf: PointBatch,
+                                    sel_c, sel_s, cfg: MappingConfig
+                                    ) -> MapCorrespondences:
+    """Distance gates and line / plane fits over k-NN selections."""
+    d2c, nc_xyz, nc_valid = sel_c
+    lines = fitting.fit_lines(nc_xyz, nc_valid, cfg.line_eig_ratio)
+    edge_valid = ((d2c[:, cfg.knn - 1] < cfg.knn_dist_sq_max) & corner.mask
+                  & lines.valid)
+    if cfg.plane_fallback:
+        d2s, ns_xyz, ns_valid, _, nw_xyz, nw_valid = sel_s
+        planes = fitting.fit_planes_two_scale(
+            ns_xyz, ns_valid, nw_xyz, nw_valid, cfg.plane_fit_tol,
+            min_wide=cfg.knn)
+    else:
+        d2s, ns_xyz, ns_valid = sel_s
+        planes = fitting.fit_planes(ns_xyz, ns_valid, cfg.plane_fit_tol)
+    plane_valid = ((d2s[:, cfg.knn - 1] < cfg.knn_dist_sq_max) & surf.mask
+                   & planes.valid)
+    return MapCorrespondences(corner.xyz, lines.center, lines.direction,
+                              edge_valid, surf.xyz, planes.center,
+                              planes.normal, plane_valid)
+
+
+class _RoundQueries:
+    """The per-round association path with ``_CandidateCache``'s
+    interface."""
+
+    def __init__(self, corner_map, surf_map, hooks: Optional[MapHooks]):
+        self.maps = (corner_map, surf_map)
+        self.hooks = hooks
+
+    def associate(self, corner: PointBatch, surf: PointBatch, cw: Tensor,
+                  sw: Tensor, cfg: MappingConfig) -> MapCorrespondences:
+        return _associate(*self.maps, corner, surf, cw, sw, cfg, self.hooks)
+
+
+def _association(corner_map, surf_map, cw0: Tensor, sw0: Tensor,
+                 cfg: MappingConfig, corner_groups, surf_groups,
+                 hooks: Optional[MapHooks]):
+    """The frame's association path: per-round queries, or the cache."""
+    if per_round(cfg, hooks):
+        return _RoundQueries(corner_map, surf_map, hooks)
+    return _CandidateCache.gather(corner_map, surf_map, cw0, sw0,
+                                  corner_groups, surf_groups)
+
+
 class MappingResult(NamedTuple):
     pose: Pose
     velocity: Tensor
@@ -113,7 +213,9 @@ class MappingResult(NamedTuple):
 
 
 def _map_ok(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
-            cfg: MappingConfig) -> Tensor:
+            cfg: MappingConfig, hooks: Optional[MapHooks] = None) -> Tensor:
+    if hooks is not None and hooks.map_ok_fn is not None:
+        return hooks.map_ok_fn(corner_map, surf_map, cfg)
     return (corner_map.total_points() > cfg.min_map_corner) & \
            (surf_map.total_points() > cfg.min_map_surf)
 
@@ -126,17 +228,17 @@ def match_scan2map_core(corner_map: vm.VoxelHashMap, surf_map: vm.VoxelHashMap,
                         scan_corner: PointBatch, scan_surf: PointBatch,
                         pose0: Pose, cfg: MappingConfig,
                         corner_groups: Optional[vm.QueryGroups] = None,
-                        surf_groups: Optional[vm.QueryGroups] = None
-                        ) -> MappingResult:
-    """Loosely-coupled scan-to-map Gauss-Newton. With query groups
-    (``pipeline.downsample_features_grouped``) the candidates come from the
-    grouped gather, without them from the one-level planar gather."""
+                        surf_groups: Optional[vm.QueryGroups] = None,
+                        hooks: Optional[MapHooks] = None) -> MappingResult:
+    """Loosely-coupled scan-to-map Gauss-Newton. On the cached path the
+    candidates come from the grouped gather with query groups
+    (``pipeline.downsample_features_grouped``), else from the one-level
+    planar gather; ``hooks`` swap the map backend."""
     pose = pose0
-    map_ok = _map_ok(corner_map, surf_map, cfg)
-    cache = _CandidateCache.gather(corner_map, surf_map,
-                                   pose.apply(scan_corner.xyz),
-                                   pose.apply(scan_surf.xyz), corner_groups,
-                                   surf_groups)
+    map_ok = _map_ok(corner_map, surf_map, cfg, hooks)
+    cache = _association(corner_map, surf_map, pose.apply(scan_corner.xyz),
+                         pose.apply(scan_surf.xyz), cfg, corner_groups,
+                         surf_groups, hooks)
     zero_v = torch.zeros_like(pose0.t)
     n_edge = n_plane = cost = None
     for _ in range(cfg.outer_rounds):
@@ -167,18 +269,18 @@ def _match_deskew(corner_map, surf_map, scan_corner: PointBatch,
                   scan_surf: PointBatch, pose0: Pose, velocity0: Tensor,
                   gravity: Tensor, corner_dk: icp.DeskewTerms,
                   surf_dk: icp.DeskewTerms, cfg: MappingConfig,
-                  corner_groups, surf_groups, imu_prep, imu_weight: float
-                  ) -> MappingResult:
+                  corner_groups, surf_groups, imu_prep, imu_weight: float,
+                  hooks: Optional[MapHooks] = None) -> MappingResult:
     """The deskew-aware 9-dim matcher: with ``imu_prep`` the IMU factor
     joins the solve and the velocity is free; without it the velocity
     columns are zero and the velocity stays as given."""
     pose, vel = pose0, velocity0
-    map_ok = _map_ok(corner_map, surf_map, cfg)
-    cache = _CandidateCache.gather(
+    map_ok = _map_ok(corner_map, surf_map, cfg, hooks)
+    cache = _association(
         corner_map, surf_map,
         icp.deskewed_world(pose, vel, scan_corner.xyz, corner_dk),
-        icp.deskewed_world(pose, vel, scan_surf.xyz, surf_dk),
-        corner_groups, surf_groups)
+        icp.deskewed_world(pose, vel, scan_surf.xyz, surf_dk), cfg,
+        corner_groups, surf_groups, hooks)
     w_imu = torch.full((1,), imu_weight, device=pose0.t.device)
     n_edge = n_plane = cost = None
     for _ in range(cfg.outer_rounds):
@@ -223,7 +325,8 @@ def match_scan2map_deskew_core(corner_map, surf_map, scan_corner: PointBatch,
                                velocity0: Tensor, gravity: Tensor,
                                corner_dk: icp.DeskewTerms,
                                surf_dk: icp.DeskewTerms, cfg: MappingConfig,
-                               corner_groups=None, surf_groups=None
+                               corner_groups=None, surf_groups=None,
+                               hooks: Optional[MapHooks] = None
                                ) -> MappingResult:
     """Scan-to-map Gauss-Newton over [pose, velocity] with per-point IMU
     deskew terms; the velocity is held constant in the solve. Query
@@ -231,7 +334,7 @@ def match_scan2map_deskew_core(corner_map, surf_map, scan_corner: PointBatch,
     R (dq p + dp) + v dt - 0.5 g dt^2 + t."""
     return _match_deskew(corner_map, surf_map, scan_corner, scan_surf, pose0,
                          velocity0, gravity, corner_dk, surf_dk, cfg,
-                         corner_groups, surf_groups, None, 0.0)
+                         corner_groups, surf_groups, None, 0.0, hooks)
 
 
 def match_scan2map_tight_core(corner_map, surf_map, scan_corner: PointBatch,
@@ -240,7 +343,8 @@ def match_scan2map_tight_core(corner_map, surf_map, scan_corner: PointBatch,
                               corner_dk: icp.DeskewTerms,
                               surf_dk: icp.DeskewTerms, pre_pair, prev_state,
                               cfg: MappingConfig, imu_weight: float = 1.0,
-                              corner_groups=None, surf_groups=None
+                              corner_groups=None, surf_groups=None,
+                              hooks: Optional[MapHooks] = None
                               ) -> MappingResult:
     """Tightly-coupled scan-to-map Gauss-Newton: the 15-dim IMU factor from
     the previous mapped state joins the lidar residuals in one 9-dim solve
@@ -250,4 +354,5 @@ def match_scan2map_tight_core(corner_map, surf_map, scan_corner: PointBatch,
         pre_pair, prev_state, gravity, sqrt_info=sqrt_information(pre_pair))
     return _match_deskew(corner_map, surf_map, scan_corner, scan_surf, pose0,
                          velocity0, gravity, corner_dk, surf_dk, cfg,
-                         corner_groups, surf_groups, imu_prep, imu_weight)
+                         corner_groups, surf_groups, imu_prep, imu_weight,
+                         hooks)

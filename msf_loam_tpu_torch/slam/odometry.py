@@ -222,8 +222,13 @@ def match_scan2scan(scan_last: ScanFeatures, scan_curr: ScanFeatures,
 
 def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
                  q_corner0: PointBatch, q_surf0: PointBatch, pose0: Pose,
-                 cfg: OdometryConfig) -> OdometryResult:
+                 cfg: OdometryConfig, group=None) -> OdometryResult:
     """Scan-to-scan matcher core over explicit feature clouds.
+
+    ``group`` (a ``parallel.mesh.Axis``, JAX's ``axis_name``): the query
+    clouds are this rank's rows; the correspondence count is summed over
+    the axis each round (one all-reduce) and the Gauss-Newton's normal
+    equations each iteration.
 
     With ``cfg.deskew`` both scans are taken as motion-distorted: the
     reference clouds reproject to their scan start once, with the warm
@@ -248,8 +253,10 @@ def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
                                           gate_scale)
         planes = find_planes(q_surf, ref_surf, pose, cfg, gate_scale)
         n_corr = edges.valid.float().sum(-1) + planes.valid.float().sum(-1)
+        if group is not None:
+            n_corr = group.all_reduce(n_corr.reshape(1))[0]
         out = gn.solve_edge_plane(pose, edges, planes, cfg.huber_delta,
-                                  cfg.gn_iterations)
+                                  cfg.gn_iterations, group=group)
         pose = select_pose(n_corr >= cfg.min_correspondences, out.pose, pose)
         cost = out.cost
     return OdometryResult(pose_curr2last=pose, n_correspondences=n_corr,

@@ -45,6 +45,7 @@ from msf_loam_tpu_torch.ops import icp_residuals as icp
 from msf_loam_tpu_torch.ops.voxel import (voxel_downsample_compact_idx,
                                           voxel_downsample_grouped_idx)
 from msf_loam_tpu_torch.slam import mapping, odometry
+from msf_loam_tpu_torch.slam.mapping import MapHooks
 from msf_loam_tpu_torch.slam import voxel_map as vm
 
 Tensor = torch.Tensor
@@ -129,11 +130,13 @@ class FrameResult:
 
 def _odometry_step(cfg: MsfLoamConfig, prev_scan: ScanFeatures,
                    scan: ScanFeatures, pose_c2l: Pose, pose_odom: Pose,
-                   is_first: Tensor):
-    """Scan-to-scan odometry with its watchdog: (odometry result, new
-    pose_c2l, new pose_odom, the frame's step: identity on the first
-    frame)."""
-    odo = odometry.match_scan2scan(prev_scan, scan, pose_c2l, cfg.odometry)
+                   is_first: Tensor, hooks: Optional[MapHooks] = None):
+    """Scan-to-scan odometry (``hooks.odometry_fn`` where given) with its
+    watchdog: (odometry result, new pose_c2l, new pose_odom, the frame's
+    step: identity on the first frame)."""
+    match = (hooks.odometry_fn if hooks is not None
+             and hooks.odometry_fn is not None else odometry.match_scan2scan)
+    odo = match(prev_scan, scan, pose_c2l, cfg.odometry)
     use = odo.ok & ~is_first & pose_is_finite(odo.pose_curr2last)
     pose_c2l = select_pose(use, odo.pose_curr2last, pose_c2l)
     step_pose = select_pose(is_first, Pose.identity(pose_c2l.t.device),
@@ -142,31 +145,60 @@ def _odometry_step(cfg: MsfLoamConfig, prev_scan: ScanFeatures,
 
 
 def _insert_both(corner_map, surf_map, corner: PointBatch, surf: PointBatch,
-                 pose_map: Pose):
+                 pose_map: Pose, hooks: Optional[MapHooks] = None):
+    insert = (hooks.insert_fn if hooks is not None
+              and hooks.insert_fn is not None else vm.insert)
     cw = corner.transform(pose_map)
     sw = surf.transform(pose_map)
-    return (vm.insert(corner_map, cw.xyz, finite_point_mask(cw.mask, cw.xyz)),
-            vm.insert(surf_map, sw.xyz, finite_point_mask(sw.mask, sw.xyz)))
+    return (insert(corner_map, cw.xyz, finite_point_mask(cw.mask, cw.xyz)),
+            insert(surf_map, sw.xyz, finite_point_mask(sw.mask, sw.xyz)))
+
+
+def _query_clouds_ungrouped(cfg: MsfLoamConfig, scan: ScanFeatures,
+                            step_pose: Optional[Pose]):
+    """The per-round association's query clouds: downsampled without
+    groups, then (``step_pose`` given) reprojected to scan start."""
+    mc = cfg.mapping
+    out = []
+    for pb, leaf, cap in ((scan.corner_less_sharp, mc.line_resolution,
+                           mc.corner_query_points),
+                          (scan.surf_less_flat, mc.plane_resolution,
+                           mc.max_query_points)):
+        ds = downsample_features(pb, leaf, cap)
+        if step_pose is not None:
+            ds = deskew_mod.undistort_from_motion(ds, step_pose,
+                                                  cfg.features.scan_period)
+        out.append((ds, None))
+    return out
 
 
 def _frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
                 prev_scan: ScanFeatures, scan: ScanFeatures, pose_c2l: Pose,
-                pose_odom: Pose, pose_o2m: Pose, is_first: Tensor):
+                pose_odom: Pose, pose_o2m: Pose, is_first: Tensor,
+                hooks: Optional[MapHooks] = None):
     """Lidar-only frame body. With ``odometry.motion_deskew`` the query
     clouds are reprojected to scan start with the frame's odometry step
     (a prior that never reads the map, so no feedback loop), and the first
     frame, whose step is the identity and whose scan cannot be deskewed,
-    is not inserted: a raw first insert would stay in the map."""
+    is not inserted: a raw first insert would stay in the map. ``hooks``
+    swap the map backend (the sharded pipeline's queries, inserts and
+    odometry); with query hooks, or ``reuse_candidates=False``, the query
+    clouds are not grouped (the JAX package's rule)."""
     mc = cfg.mapping
     odo, pose_c2l, pose_odom, step_pose = _odometry_step(
-        cfg, prev_scan, scan, pose_c2l, pose_odom, is_first)
+        cfg, prev_scan, scan, pose_c2l, pose_odom, is_first, hooks)
     guess = pose_o2m.compose(pose_odom)
-    (corner_ds, corner_groups), (surf_ds, surf_groups) = query_clouds(
-        cfg, scan, guess, step_pose)
+    if mapping.per_round(mc, hooks):
+        (corner_ds, corner_groups), (surf_ds, surf_groups) = \
+            _query_clouds_ungrouped(
+                cfg, scan, step_pose if cfg.odometry.motion_deskew else None)
+    else:
+        (corner_ds, corner_groups), (surf_ds, surf_groups) = query_clouds(
+            cfg, scan, guess, step_pose)
 
     mres = mapping.match_scan2map_core(corner_map, surf_map, corner_ds,
                                        surf_ds, guess, mc, corner_groups,
-                                       surf_groups)
+                                       surf_groups, hooks=hooks)
     # watchdog: a non-finite solve falls back to the odometry guess
     pose_map = select_pose(mres.ok & pose_is_finite(mres.pose), mres.pose,
                            guess)
@@ -175,7 +207,7 @@ def _frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
         corner_ds = corner_ds._replace(mask=corner_ds.mask & ~is_first)
         surf_ds = surf_ds._replace(mask=surf_ds.mask & ~is_first)
     corner_map, surf_map = _insert_both(corner_map, surf_map, corner_ds,
-                                        surf_ds, pose_map)
+                                        surf_ds, pose_map, hooks)
     return (corner_map, surf_map, pose_c2l, pose_odom, pose_o2m, pose_map,
             odo.n_correspondences, odo.ok | is_first)
 
@@ -204,18 +236,20 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
                    pose_o2m: Pose, is_first: Tensor,
                    pair_dts, pair_accs, pair_gyrs, pair_valid,
                    scan_dts, scan_accs, scan_gyrs, scan_valid,
-                   prev_p, prev_q, prev_v, gravity, ba=None, bg=None):
+                   prev_p, prev_q, prev_v, gravity, ba=None, bg=None,
+                   hooks: Optional[MapHooks] = None):
     """The tightly-coupled (post-initialisation) frame: extraction,
     scan-to-scan odometry, pair and scan preintegration, the IMU pre-solve,
     the downsample grouped at the IMU-predicted deskewed world positions,
     the deskew-aware (``tight_coupling``: IMU factor in the solve, velocity
     free) scan-to-map Gauss-Newton, the full deskew and the insert.
     Returns (corner_map, surf_map, pose_c2l, pose_odom, pose_o2m, pose_map,
-    velocity, n_correspondences, ok, scan)."""
+    velocity, n_correspondences, ok, scan). ``hooks`` as ``_frame_core``."""
     mc, ic = cfg.mapping, cfg.imu
     scan = feat_mod.extract_features(ring_image, scan_time, cfg.features)
     odo, pose_c2l, pose_odom, _ = _odometry_step(cfg, prev_scan, scan,
-                                                 pose_c2l, pose_odom, is_first)
+                                                 pose_c2l, pose_odom, is_first,
+                                                 hooks)
 
     # the IMU prediction of this frame's state from the previous mapped
     # state, with the preintegration linearised at the online biases
@@ -236,13 +270,18 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
         dk = deskew_mod.deskew_terms(pre_scan, pb.rel_time, gravity)
         return icp.deskewed_world(pred.pose, pred.v, pb.xyz, dk)
 
-    corner_ds, corner_groups = downsample_features_grouped(
-        scan.corner_less_sharp, mc.line_resolution, mc.corner_query_points,
-        _key_world(scan.corner_less_sharp), mc.map_cell_size,
-        mc.gather_groups)
-    surf_ds, surf_groups = downsample_features_grouped(
-        scan.surf_less_flat, mc.plane_resolution, mc.max_query_points,
-        _key_world(scan.surf_less_flat), mc.map_cell_size, mc.gather_groups)
+    if mapping.per_round(mc, hooks):
+        (corner_ds, corner_groups), (surf_ds, surf_groups) = \
+            _query_clouds_ungrouped(cfg, scan, None)
+    else:
+        corner_ds, corner_groups = downsample_features_grouped(
+            scan.corner_less_sharp, mc.line_resolution,
+            mc.corner_query_points, _key_world(scan.corner_less_sharp),
+            mc.map_cell_size, mc.gather_groups)
+        surf_ds, surf_groups = downsample_features_grouped(
+            scan.surf_less_flat, mc.plane_resolution, mc.max_query_points,
+            _key_world(scan.surf_less_flat), mc.map_cell_size,
+            mc.gather_groups)
 
     corner_dk = deskew_mod.deskew_terms(pre_scan, corner_ds.rel_time, gravity)
     surf_dk = deskew_mod.deskew_terms(pre_scan, surf_ds.rel_time, gravity)
@@ -251,12 +290,12 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
             corner_map, surf_map, corner_ds, surf_ds, pred.pose, pred.v,
             gravity, corner_dk, surf_dk, pre_pair, prev_state, mc,
             imu_weight=ic.imu_factor_weight, corner_groups=corner_groups,
-            surf_groups=surf_groups)
+            surf_groups=surf_groups, hooks=hooks)
     else:
         mres = mapping.match_scan2map_deskew_core(
             corner_map, surf_map, corner_ds, surf_ds, pred.pose, pred.v,
             gravity, corner_dk, surf_dk, mc, corner_groups=corner_groups,
-            surf_groups=surf_groups)
+            surf_groups=surf_groups, hooks=hooks)
     guess = pose_o2m.compose(pose_odom)
     # watchdog: a non-finite solve (NaN IMU sample, degenerate geometry)
     # never leaks into the pose chain
@@ -276,7 +315,7 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
     surf_fix = deskew_mod.undistort_full(surf_ds, pre_scan, pose_map, vel,
                                          gravity)
     corner_map, surf_map = _insert_both(corner_map, surf_map, corner_fix,
-                                        surf_fix, pose_map)
+                                        surf_fix, pose_map, hooks)
     return (corner_map, surf_map, pose_c2l, pose_odom, pose_o2m, pose_map,
             vel, odo.n_correspondences, odo.ok | is_first, scan)
 

@@ -260,12 +260,33 @@ def optimize(poses0: Pose, data: PoseGraphData, cfg: PoseGraphConfig,
              n_iters: int = 10) -> PoseGraphResult:
     """Batch pose-graph GN (chain + GPS) with the exact block-tridiagonal
     solve: one kernel launch per iteration on the card."""
+    return _optimize_impl(poses0, data, cfg, n_iters, solve_block_tridiag)
+
+
+def optimize_distributed(mesh, poses0: Pose, data: PoseGraphData,
+                         cfg: PoseGraphConfig, n_iters: int = 10
+                         ) -> PoseGraphResult:
+    """``optimize`` with the block-tridiagonal solve distributed over the
+    mesh ``data`` axis (``parallel.distributed_ba``: condense, gathered
+    separator solve, back-substitute; three launches and two all-gathers
+    an iteration). Assembly and retraction run replicated. N must divide
+    by the axis into chunks of at least 2 (``pad_graph`` /
+    ``next_bucket``)."""
+    from msf_loam_tpu_torch.parallel.distributed_ba import \
+        distributed_tridiag_solve
+    return _optimize_impl(
+        poses0, data, cfg, n_iters,
+        lambda D, U, b: distributed_tridiag_solve(mesh, D, U, b))
+
+
+def _optimize_impl(poses0: Pose, data: PoseGraphData, cfg: PoseGraphConfig,
+                   n_iters: int, solver) -> PoseGraphResult:
     rel_val, rel_lin, gps_val, gps_lin = _make_factor_fns(cfg)
     initial = _chain_cost(poses0, data, cfg, rel_val, gps_val)
     poses = poses0
     for _ in range(n_iters):
         D, U, b = _assemble_chain(poses, data, cfg, rel_lin, gps_lin)
-        dx = solve_block_tridiag(D, U, -b)
+        dx = solver(D, U, -b)
         poses = poses.retract(dx)
     final = _chain_cost(poses, data, cfg, rel_val, gps_val)
     return PoseGraphResult(poses=poses, initial_cost=initial,
@@ -333,6 +354,27 @@ def optimize_with_loops(poses0: Pose, data: PoseGraphData, loops: LoopFactors,
     weighted loop Jacobians (6N x 6L, nonzero only at rows i and j of each
     loop), through the Woodbury identity. One kernel launch per iteration
     on the card. Invalid (padded) loops are inert."""
+    return _optimize_loops_impl(poses0, data, loops, cfg, n_iters,
+                                _woodbury_solve)
+
+
+def optimize_with_loops_distributed(mesh, poses0: Pose, data: PoseGraphData,
+                                    loops: LoopFactors, cfg: PoseGraphConfig,
+                                    n_iters: int = 10) -> PoseGraphResult:
+    """``optimize_with_loops`` with the whole Woodbury solve distributed
+    over the mesh ``data`` axis (``parallel.distributed_ba.
+    distributed_woodbury_solve``: three launches, two all-gathers and one
+    all-reduce an iteration). N as ``optimize_distributed``."""
+    from msf_loam_tpu_torch.parallel.distributed_ba import \
+        distributed_woodbury_solve
+    return _optimize_loops_impl(
+        poses0, data, loops, cfg, n_iters,
+        lambda D, U, rhs, W: distributed_woodbury_solve(mesh, D, U, rhs, W))
+
+
+def _optimize_loops_impl(poses0: Pose, data: PoseGraphData,
+                         loops: LoopFactors, cfg: PoseGraphConfig,
+                         n_iters: int, woodbury_solver) -> PoseGraphResult:
     if loops.idx_i.shape[0] == 0:
         raise ValueError("pad loops to at least 1 slot (LoopFactors.pad); "
                          "invalid slots are inert")
@@ -348,7 +390,7 @@ def optimize_with_loops(poses0: Pose, data: PoseGraphData, loops: LoopFactors,
     for _ in range(n_iters):
         D, U, b = _assemble_chain(poses, data, cfg, rel_lin, gps_lin)
         b, W = _assemble_loops(poses, loops, cfg, b, rel_lin)
-        dx = _woodbury_solve(D, U, -b, W)
+        dx = woodbury_solver(D, U, -b, W)
         poses = poses.retract(dx)
     final = total_cost(poses)
     return PoseGraphResult(poses=poses, initial_cost=initial,

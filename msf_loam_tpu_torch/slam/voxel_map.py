@@ -1,6 +1,7 @@
 """Fixed-capacity spatial-hash voxel map (port of the JAX package's
 ``slam/voxel_map.py``: create, insert, evict, the one-level planar and the
-grouped octant gathers).
+grouped octant gathers, and the per-round k-NN queries with their
+selection halves).
 
 * ``points``   (H, P, 3) — slab of up to P points per hash slot; unoccupied
   entries hold ``EMPTY_COORD`` in every component (an invariant kept by
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from msf_loam_tpu_torch.ops.voxel import (as_i32, div_scale, hash3_u32,
@@ -233,3 +235,111 @@ def gather_candidates_rows_grouped(vmap: VoxelHashMap, query: Tensor,
     grp = grp.view(G, 8, P, 3).permute(0, 3, 1, 2).reshape(G, 3 * 8 * P)
     grp[G - 1] = EMPTY_COORD
     return grp[torch.clamp(gid, 0, G - 1)]                    # (Q, 3*8P)
+
+
+# ------------------------------------------------ per-round k-NN queries
+_FAR = 3e38   # d2 of a candidate outside the radius (lax.top_k's sentinel)
+
+
+def _sq_f32(x) -> float:
+    """x**2 rounded as float32 arithmetic rounds it (the JAX radii are
+    float32 scalars)."""
+    x = np.float32(x)
+    return float(x * x)
+
+
+def radii_sq(cell_size: float):
+    """(strict, wide) squared query radii: (cell/2)^2 and cell^2."""
+    c = np.float32(cell_size)
+    return _sq_f32(c * np.float32(0.5)), _sq_f32(c)
+
+
+def sq_dist(a: Tensor, b: Tensor) -> Tensor:
+    """|a - b|^2 over the last axis as XLA compiles the JAX package's
+    ``sum(diff * diff, -1)``: fma(dz, dz, fma(dy, dy, dx * dx)). Each
+    fused multiply-add is formed in float64 (the float32 product is exact
+    there) and rounded once to float32."""
+    d = a - b
+    acc = d[..., 0] * d[..., 0]
+    for i in (1, 2):
+        di = d[..., i].double()
+        acc = (di * di + acc.double()).float()
+    return acc
+
+
+def octant_candidates(points: Tensor, count: Tensor, cell_size: float,
+                      query: Tensor, table_size: int, lo: int = 0):
+    """The 8 octant slabs around each query in a table of ``points``
+    (h, P, 3) / ``count`` (h,) that holds global slots [lo, lo + h) of a
+    ``table_size``-slot map (the whole map for lo = 0, h = table_size):
+    candidates (Q, 8P, 3), their occupancy (Q, 8P) (False in slots this
+    table does not hold) and squared distances (Q, 8P)."""
+    h, P = points.shape[0], points.shape[1]
+    Q = query.shape[0]
+    slots = _hash_cells(neighbor_cells8(query, cell_size), table_size)
+    own = (slots >= lo) & (slots < lo + h)
+    local = torch.clamp(slots - lo, 0, h - 1)
+    cand = points[local]                                     # (Q, 8, P, 3)
+    occup = (torch.arange(P, device=query.device)[None, None, :]
+             < count[local][:, :, None].long()) & own[:, :, None]
+    d2 = sq_dist(cand, query[:, None, None, :])
+    return cand.reshape(Q, 8 * P, 3), occup.reshape(Q, -1), d2.reshape(Q, -1)
+
+
+def top_k(d2: Tensor, keep: Tensor, cand: Tensor, k: int):
+    """The k smallest kept distances of each row and their points, ties
+    to the lower index as lax.top_k takes them (a stable sort); rows with
+    fewer than k kept candidates fill with d2 = 3e38."""
+    d2m = torch.where(keep, d2, torch.full((), _FAR, device=d2.device))
+    order = torch.sort(d2m, dim=-1, stable=True).indices[..., :k]
+    top = torch.gather(d2m, -1, order)
+    xyz = torch.gather(cand, -2, order[..., None].expand(order.shape + (3,)))
+    return top, xyz
+
+
+def query_knn(vmap: VoxelHashMap, query: Tensor, query_mask: Tensor,
+              k: int = 5):
+    """The k nearest map points within cell_size/2 of each query, from its
+    8 octant slabs: (d2 (Q, k), xyz (Q, k, 3), valid (Q, k))."""
+    cand, occup, d2 = octant_candidates(vmap.points, vmap.count,
+                                        vmap.cell_size, query,
+                                        vmap.table_size)
+    r2s, _ = radii_sq(vmap.cell_size)
+    top, xyz = top_k(d2, occup & (d2 <= r2s), cand, k)
+    return top, xyz, (top < 1e37) & query_mask[:, None]
+
+
+def query_knn_2r(vmap: VoxelHashMap, query: Tensor, query_mask: Tensor,
+                 k: int = 5, k2: int = 16):
+    """Two-radius k-NN from one octant gather: the strict top-k within
+    cell_size/2 (``query_knn``) and the wide top-k2 within cell_size.
+    Returns (d2, xyz, valid, d2w, xyzw, validw)."""
+    cand, occup, d2 = octant_candidates(vmap.points, vmap.count,
+                                        vmap.cell_size, query,
+                                        vmap.table_size)
+    r2s, r2w = radii_sq(vmap.cell_size)
+    top, xyz = top_k(d2, occup & (d2 <= r2s), cand, k)
+    topw, xyzw = top_k(d2, occup & (d2 <= r2w), cand, k2)
+    qm = query_mask[:, None]
+    return top, xyz, (top < 1e37) & qm, topw, xyzw, (topw < 1e37) & qm
+
+
+def select_knn(cand: Tensor, cand_valid: Tensor, query: Tensor,
+               cell_size: float, k: int = 5):
+    """Strict top-k from gathered candidates (Q, C, 3): the selection half
+    of ``query_knn``."""
+    d2 = sq_dist(cand, query[:, None, :])
+    r2s, _ = radii_sq(cell_size)
+    top, xyz = top_k(d2, cand_valid & (d2 <= r2s), cand, k)
+    return top, xyz, top < 1e37
+
+
+def select_knn_2r(cand: Tensor, cand_valid: Tensor, query: Tensor,
+                  cell_size: float, k: int = 5, k2: int = 16):
+    """Two-radius selection from gathered candidates: the selection half
+    of ``query_knn_2r``."""
+    d2 = sq_dist(cand, query[:, None, :])
+    r2s, r2w = radii_sq(cell_size)
+    top, xyz = top_k(d2, cand_valid & (d2 <= r2s), cand, k)
+    topw, xyzw = top_k(d2, cand_valid & (d2 <= r2w), cand, k2)
+    return top, xyz, top < 1e37, topw, xyzw, topw < 1e37

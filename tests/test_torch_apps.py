@@ -279,16 +279,16 @@ def test_evaluate_export_viz_and_viz_stream_match_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["map_shards", "default_device"])
 def test_run_slam_refuses_what_it_cannot_run(case, tmp_path, capsys):
-    """--map_shards > 1 (the sharded map is not ported) exits with an error
-    that names it; without CUDA the default device raises instead of
-    running on the CPU."""
+    """--map_shards 2 in a world of one process exits with an error that
+    names torchrun (the sharded map needs one rank a shard); without CUDA
+    the default device raises instead of running on the CPU."""
     argv = ["--selftest", "--selftest_frames", "2", "--quiet",
             "--output_dir", str(tmp_path)]
     if case == "map_shards":
         with pytest.raises(SystemExit) as e:
             trun.main(argv + ["--map_shards", "2", "--device", "cpu"])
         assert e.value.code == 2
-        assert "A12" in capsys.readouterr().err
+        assert "torchrun --nproc_per_node 2" in capsys.readouterr().err
     else:
         if torch.cuda.is_available():
             pytest.skip("this machine has CUDA; the check is for CPU machines")

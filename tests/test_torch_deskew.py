@@ -285,8 +285,8 @@ def test_deskew_recovers_true_step_on_accelerating_motion(plane_corr):
 def test_config_accepts_the_switches_and_checks_the_scan_period():
     """The three switches construct, as in JAX; an in-matcher deskew whose
     scan period disagrees with the features' raises in both packages;
-    ``mapping.reuse_candidates=False`` (the per-round association, not
-    ported) still raises in the port."""
+    ``mapping.reuse_candidates=False`` (the per-round association)
+    constructs in both."""
     for od in (dict(motion_deskew=True), dict(deskew=True),
                dict(plane_corr="triangle"), dict(plane_corr="anything")):
         MsfLoamConfig(odometry=OdometryConfig(**od))
@@ -299,5 +299,6 @@ def test_config_accepts_the_switches_and_checks_the_scan_period():
     # without deskew the mismatch is harmless in both
     MsfLoamConfig(odometry=OdometryConfig(scan_period=0.05))
     jconfig.MsfLoamConfig(odometry=jconfig.OdometryConfig(scan_period=0.05))
-    with pytest.raises(ValueError, match="reuse_candidates"):
-        MsfLoamConfig(mapping=MappingConfig(reuse_candidates=False))
+    MsfLoamConfig(mapping=MappingConfig(reuse_candidates=False))
+    jconfig.MsfLoamConfig(mapping=jconfig.MappingConfig(
+        reuse_candidates=False))

@@ -110,7 +110,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
                 "dataio/stream", "proto/__init__", "dataio/nsh_bag",
                 "apps/run_slam", "apps/evaluate", "apps/export_viz",
                 "apps/viz_stream", "apps/kitti_to_bag", "apps/rosbag_to_npz",
-                "imu/extrinsic_calib", "apps/calib_lidar_imu"):
+                "imu/extrinsic_calib", "apps/calib_lidar_imu",
+                "apps/bench_scaling", "ops/fitting", "parallel/mesh",
+                "parallel/runtime", "parallel/data_parallel",
+                "parallel/sharded_odometry", "parallel/sharded_map",
+                "parallel/sharded_pipeline", "parallel/distributed_ba"):
         assert f"{mod}.py" in names, mod
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -128,8 +132,18 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 
 def test_default_device_raises_without_cuda():
     """Entry points run on the card unless the caller asks for the CPU:
-    without CUDA a default pipeline raises instead of falling back."""
+    without CUDA a default pipeline raises instead of falling back, and so
+    do the distributed mesh and process group on ``device="cuda"`` (before
+    any group starts)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the check is for CPU machines")
+    from msf_loam_tpu_torch.parallel import mesh as mesh_mod
+    from msf_loam_tpu_torch.parallel import runtime
     with pytest.raises(RuntimeError, match="CUDA"):
         SlamPipeline(MsfLoamConfig())
+    for start in (lambda: mesh_mod.make_mesh(n_map=1),
+                  lambda: mesh_mod.make_mesh(n_map=1, device="cuda"),
+                  lambda: runtime.initialize(device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            start()
+    assert not torch.distributed.is_initialized()
